@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of siriltpu_torch's main path on one NVIDIA GPU.
+"""Smoke run of siriltpu_torch's main paths on one NVIDIA GPU.
 
 Run from the root of the repository, on a machine with a CUDA card and
 nvcc:  python3 chip_smoke.py
@@ -8,19 +8,36 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing a result:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compile the CUDA library from siril-0.9_tpu/siriltpu_torch/csrc;
-3. kernel vs plain: the CUDA sigma kernel against its plain PyTorch
-   version (reject_sigma_window) on the card, bit for bit, for F in
-   {5, 7, 12, 25, 64, 100, 256} and P = 65536 (outliers at 0 and 60000,
-   real 65535 values, degenerate geomspace columns), then the wrapper
-   with its degenerate fix-up against reject_and_mean("sigma");
-4. main path: register_and_stack on a 100 x 4096 x 4096 uint16 sequence
-   made on the card (shifts in [-20, 20]): exact shifts, the kernel's
-   launch count, and the stacked image and counters bit-equal to the plain
-   version run in 2^20-pixel chunks;
-5. timing: frames/s end to end (mean of 3 warm runs) and per-stage ms
+2. build: compile the CUDA library from siril-0.9_tpu/siriltpu_torch/csrc
+   (one nvcc per source, all started together);
+3. kernels vs plain: each of the five CUDA rejection kernels (sigma,
+   median, percentile, sigmedian, winsorized) against its plain PyTorch
+   version on the card, bit for bit, for F in {3, 5, 12, 25, 64, 100, 256,
+   1000} (sigma also 7) and P = 65536 (outliers at 0 and 60000, real 65535
+   values, degenerate geomspace columns), and past the shared-memory bound
+   on the device-memory scratch path (sigma at F = 4000, winsorized at
+   F = 2000); then the dispatcher with its degenerate fix-up against
+   reject_and_mean (masked_median for median);
+4. register + sigma stack: register_and_stack on a 100 x 4096 x 4096
+   uint16 sequence made on the card (shifts in [-20, 20]): exact shifts,
+   the kernel's launch count, and the stacked image and counters bit-equal
+   to the plain version run in 2^20-pixel chunks;
+5. its timing: frames/s end to end (mean of 3 warm runs) and per-stage ms
    (CUDA events, median of 3 warm runs), with the plain version's ms for
-   the kernel and for the whole stack stage at the same shape.
+   the kernel and for the whole stack stage at the same shape;
+6. config 2: stack_frames on 50 x 1 x 2048 x 2048 frames made on the card
+   (shifts in [-20, 20]): the median stack, then the mean stack with sigma
+   (3, 3), percentile (0.2, 0.1) and sigmedian (3, 3), no normalization;
+7. config 3: stack_frames(mean, winsorized (3, 3), additive_scaling) on
+   1000 x 1 x 480 x 640 frames made on the card (shifts in [-20, 20]).
+
+Each stack of phases 6-7 runs once with every launch count set to 0: its
+kernel must have launched, and the image and per-channel counters must be
+bit-equal to the same y-shifted, normalized, x-shifted (F, P) data, built
+here with other code, put through the plain version in 2^20-pixel chunks.
+A second, warm run gives its frames/s. Each kernel's ms and its plain
+version's ms are taken at its configuration's full shape (CUDA events,
+median of 3 warm runs).
 
 The line before the last holds one JSON object describing each kernel;
 the last line is {"ok": true, "device": {...}}.
@@ -40,10 +57,23 @@ sys.path.insert(0, os.path.join(REPO, "siril-0.9_tpu"))
 DEVICE = "cuda"
 SIZE, NFRAMES, SIG = 4096, 100, 3.0
 CASE_P = 65536
+CASE_FS = (3, 5, 12, 25, 64, 100, 256, 1000)
+#: past the shared-memory bound: the device-memory scratch path
+SCRATCH_CASES = (("sigma", 4000), ("winsorized", 2000))
+CONFIG2 = (50, 2048, 2048)   # frames, height, width
+CONFIG3 = (1000, 480, 640)
 CHUNK = 1 << 20
 REPS = 3
-KERNEL_SOURCE = "siril-0.9_tpu/siriltpu_torch/csrc/reject_sigma.cu"
-KERNEL_REPLACES = "siril-0.9_tpu/siriltpu/ops/pallas/reject_stack.py:797"
+PALLAS = "siril-0.9_tpu/siriltpu/ops/pallas/reject_stack.py"
+#: first line of each kernel's branch of _make_kernel
+REPLACES = {"sigma": 797, "median": 255, "percentile": 271, "sigmedian": 297,
+            "winsorized": 611}
+#: (siglow, sighigh) of each kernel's full-size run; percentile takes
+#: (plow, phigh)
+SIGS = {"sigma": (SIG, SIG), "median": (0.0, 0.0), "percentile": (0.2, 0.1),
+        "sigmedian": (3.0, 3.0), "winsorized": (3.0, 3.0)}
+#: sigma of the phase-3 cases by frame count (small F clips harder)
+CASE_SIG = {3: 2.0, 5: 1.5, 7: 2.0, 12: 2.5, 25: 2.5}
 
 
 def fail(msg: str):
@@ -61,6 +91,44 @@ def make_case(f: int, p: int, degen_every: int, seed: int) -> np.ndarray:
     v[: min(2, f), ::13] = 65535
     v[:, ::degen_every] = np.geomspace(1, 65535, f).astype(np.uint16)[:, None]
     return v
+
+
+def make_frames(f: int, h: int, w: int, seed: int, dev):
+    """(F, 1, H, W) uint16 sky made on the card from ``seed``: a background
+    near 1000 with a per-frame level in [-40, 40], 300 point sources, each
+    frame drifted by a shift in [-20, 20] with zero fill, fresh noise, and
+    cold (0) and hot (60000) outliers in 0.1% of each frame's pixels each.
+    Returns the frames and the (F, 2) int32 registration shifts
+    (shiftx, shifty) that undo the drift."""
+    import torch
+    from siriltpu_torch.pipelines.register_stack import _shift_into
+    from siriltpu_torch.utils.interop import i32_to_u16
+
+    rng = np.random.default_rng(seed)
+    drift = rng.integers(-20, 21, (f, 2))
+    drift[0] = 0
+    level = rng.integers(-40, 41, f)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    kw = dict(generator=g, device=dev)
+    base = 1000.0 + 15.0 * torch.randn((h, w), **kw)
+    npts = 300
+    ys = torch.randint(0, h, (npts,), **kw)
+    xs = torch.randint(0, w, (npts,), **kw)
+    base.index_put_((ys, xs), 3000.0 + 37000.0 * torch.rand((npts,), **kw),
+                    accumulate=True)
+    frames = torch.empty((f, h * w), dtype=torch.int16, device=dev)
+    shifted = torch.empty_like(base)
+    nout = h * w // 1000
+    for i in range(f):
+        shifted.zero_()
+        _shift_into(shifted, base, int(drift[i, 0]), int(drift[i, 1]))
+        noisy = shifted + float(level[i]) + 10.0 * torch.randn((h, w), **kw)
+        frames[i] = i32_to_u16(torch.clamp(noisy, 0, 65535)).view(torch.int16).reshape(-1)
+        for value in (0, 60000):
+            idx = torch.randint(0, h * w, (nout,), **kw)
+            frames[i, idx] = int(np.uint16(value).view(np.int16))
+    return frames.view(torch.uint16).reshape(f, 1, h, w), (-drift).astype(np.int32)
 
 
 def max_abs_diff(got, want) -> int:
@@ -89,12 +157,232 @@ def cuda_ms(fn, reps: int = REPS):
     return float(np.median(times)), out
 
 
+def chunked(fn, flat):
+    """A function that runs ``fn`` on ``flat``'s 2^20-pixel chunks."""
+    def run():
+        for a in range(0, flat.shape[1], CHUNK):
+            fn(flat[:, a:a + CHUNK])
+    return run
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
         check=True).stdout.strip().splitlines()[0]
+
+
+class Record:
+    """Per kernel: the launches of the main paths, the largest difference
+    from its plain version, and its and the plain version's ms."""
+
+    def __init__(self, names):
+        self.launches = dict.fromkeys(names, 0)
+        self.err = dict.fromkeys(names, 0)
+        self.ms = {}
+
+    def check(self, name: str, errs, what: str):
+        self.err[name] = max(self.err[name], *errs)
+        if any(errs):
+            fail(f"{what}: max|diff| {errs}")
+
+    def count(self, launches: dict, paths: str, kernel: str):
+        """Add a main path's launch counts; its kernel must have run."""
+        for k, n in launches.items():
+            self.launches[k] += n
+        if launches[kernel] < 1:
+            fail(f"{paths} did not launch the {kernel} kernel")
+
+
+def phase3(rs, rec, dev):
+    import torch
+    from siriltpu_torch.ops.rejection import masked_median, reject_and_mean
+    from siriltpu_torch.utils.interop import frames_from_numpy
+
+    cases = [(r, f, CASE_P) for r in rs.launches
+             for f in sorted(set(CASE_FS) | ({7} if r == "sigma" else set()))]
+    cases += [(r, f, CASE_P) for r, f in SCRATCH_CASES]
+    for rej, f, p in cases:
+        sig = CASE_SIG.get(f, 3.0)
+        lo, hi = (0.2, 0.1) if rej == "percentile" else (sig, sig)
+        vals = frames_from_numpy(make_case(f, p, 3 if f == 25 else 97, seed=f), dev)
+        scratch = rs.pick_tile(f, rej) is None
+        got = rs.reject_cuda(vals, rej, lo, hi)
+        torch.cuda.synchronize()
+        want = rs.reject_plain(vals, rej, lo, hi)
+        torch.cuda.synchronize()
+        errs = [max_abs_diff(g, w) for g, w in zip(got, want)]
+        fin = rs.reject_stack(vals, rej, lo, hi, with_counters=True)
+        torch.cuda.synchronize()
+        ref = ((masked_median(vals),) if rej == "median"
+               else reject_and_mean(vals, rej, (lo, hi)))
+        torch.cuda.synchronize()
+        ferrs = [max_abs_diff(g, w) for g, w in zip(fin, ref)]
+        print(f"phase3 {rej} F={f} P={p} sig=({lo}, {hi}) "
+              f"{'scratch' if scratch else 'shared'} degenerate={int(got[1].sum())} "
+              f"kernel-vs-plain max|diff| mean/degen/rejl/rejh={errs} "
+              f"final-vs-reject_and_mean={ferrs}", flush=True)
+        rec.check(rej, errs + ferrs, f"{rej} kernel at F={f}")
+
+
+def phase4_5(rs, rec, dev, card):
+    import torch
+    from siriltpu_torch.ops.quality import quality_estimate_batch
+    from siriltpu_torch.ops.rejection import reject_and_mean
+    from siriltpu_torch.pipelines import register_stack as prs
+    from siriltpu_torch.utils.interop import shifts_to_numpy
+
+    bench = prs.RegisterStackBench(size=SIZE, nframes=NFRAMES, seed=0, device=dev)
+    t0 = time.perf_counter()
+    frames = bench.frames()
+    torch.cuda.synchronize()
+    print(f"phase4 frames {tuple(frames.shape)} {frames.dtype} made on the card "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    stacked, (sx, sy), quality = prs.register_and_stack(
+        frames, sel=bench.sel, sig=(SIG, SIG), return_device=True)
+    torch.cuda.synchronize()
+    launches = dict(rs.launches)
+    rec.count(launches, "register_and_stack", "sigma")
+    if not np.array_equal(shifts_to_numpy(sx, sy), -bench.shifts):
+        fail("recovered shifts differ from the negated generated ones")
+    if tuple(stacked.shape) != (SIZE, SIZE) or stacked.dtype != torch.uint16:
+        fail(f"stacked image {tuple(stacked.shape)} {stacked.dtype}")
+    if quality.shape != (NFRAMES,) or not bool(torch.isfinite(quality).all()):
+        fail("quality is not finite of shape (F,)")
+    # the plain reference aligns with the gather form (the main path used
+    # the slice form) and stacks in 2^20-pixel chunks
+    flat = prs.align_frames_gather(frames, sx, sy).reshape(NFRAMES, -1)
+    kmean, krejl, krejh = rs.reject_stack(flat, "sigma", SIG, SIG, with_counters=True)
+    torch.cuda.synchronize()
+    errs = [max_abs_diff(kmean, stacked.reshape(-1))]
+    for a in range(0, flat.shape[1], CHUNK):
+        pm, pl, ph = reject_and_mean(flat[:, a:a + CHUNK], "sigma", (SIG, SIG))
+        errs += [max_abs_diff(kmean[a:a + CHUNK], pm),
+                 max_abs_diff(krejl[a:a + CHUNK], pl),
+                 max_abs_diff(krejh[a:a + CHUNK], ph)]
+    ndeg = int(rs.reject_cuda(flat, "sigma", SIG, SIG)[1].sum())
+    torch.cuda.synchronize()
+    print(f"phase4 main path {NFRAMES}x{SIZE}x{SIZE}: shifts exact, "
+          f"kernel launches={launches}, degenerate pixels={ndeg}, "
+          f"rejected low={int(krejl.sum())} high={int(krejh.sum())}, "
+          f"stacked+counters vs plain max|diff|={max(errs)}", flush=True)
+    rec.check("sigma", errs, "register_and_stack vs the plain version")
+    del kmean, krejl, krejh
+
+    # ---- 5. timing
+    fps = bench.run(repeats=REPS)
+    sel_frames = prs._selection(frames, bench.sel)
+    ms = {}
+    ms["shifts"], (sx, sy) = cuda_ms(lambda: prs.compute_shifts(frames, 0, bench.sel))
+    ms["quality"], _ = cuda_ms(lambda: quality_estimate_batch(sel_frames))
+    ms["align"], aligned = cuda_ms(lambda: prs.align_frames_auto(frames, sx, sy))
+    flat = aligned.reshape(NFRAMES, -1)
+    ms["kernel"], raw = cuda_ms(lambda: rs.reject_cuda(flat, "sigma", SIG, SIG))
+    # the fix-up writes in place, and writes the same values every run
+    ms["fixup"], _ = cuda_ms(lambda: rs.fix_degenerate(flat, "sigma", *raw, SIG, SIG))
+    # the kernel's plain version, and the whole stack stage's (with the
+    # exact re-run of degenerate pixels), in 2^20-pixel chunks
+    ms["plain_kernel"], _ = cuda_ms(chunked(
+        lambda v: rs.reject_plain(v, "sigma", SIG, SIG), flat))
+    ms["plain_stack"], _ = cuda_ms(chunked(
+        lambda v: reject_and_mean(v, "sigma", (SIG, SIG)), flat))
+    print(f"timing [{card}] register+stack {NFRAMES}x{SIZE}x{SIZE}: "
+          f"{fps:.3f} frames/s end to end (mean of {REPS} warm runs); "
+          + " ".join(f"{k}_ms={v:.3f}" for k, v in ms.items()), flush=True)
+    rec.ms["sigma"] = (ms["kernel"], ms["plain_kernel"])
+
+
+def reference_flat(frames, shifts, method: str, coeffs):
+    """The (F, H * W) uint16 values a stack_frames run puts through its
+    kernel, built with other code than its block loop: the y-shift with
+    zero fill, the additive normalization of every value (y fill
+    included) by ``coeffs`` = (offset, mul, scale) unless it is None, then
+    the x-shift with zero fill (stacking.c:1546-1651). The median stack
+    applies no shift."""
+    import torch
+    from siriltpu_torch.pipelines.register_stack import align_frames_gather
+    from siriltpu_torch.utils.interop import i32_to_u16, u16_to_i32
+    from siriltpu_torch.utils.rounding import round_to_word_f
+
+    f = frames.shape[0]
+    dev = frames.device
+    zero = torch.zeros(f, dtype=torch.int64, device=dev)
+    sx, sy = (torch.from_numpy(shifts[:, k].astype(np.int64)).to(dev) for k in (0, 1))
+    if method == "median":
+        sx = sy = zero
+    vals = align_frames_gather(frames[:, 0], zero, sy)
+    if coeffs is not None:
+        off, _, scale = (torch.tensor(c, dtype=torch.float32, device=dev)[:, None, None]
+                         for c in coeffs)
+        x = round_to_word_f(u16_to_i32(vals).to(torch.float32) * scale - off)
+        vals = i32_to_u16(x.to(torch.int32))
+    return align_frames_gather(vals, sx, zero).reshape(f, -1)
+
+
+def stack_config(rs, rec, dev, card, label, frames, shifts, method, rejection,
+                 normalize):
+    """One stack_frames run of a configuration, held to the plain version;
+    then a warm run for its frames/s, and its kernel's time at this shape."""
+    import torch
+    from siriltpu_torch.ops.rejection import masked_median, reject_and_mean
+    from siriltpu_torch.stacking.api import (compute_normalization, ikss_stats,
+                                             stack_frames)
+    from siriltpu_torch.utils.interop import frames_from_numpy
+
+    f, c, h, w = frames.shape
+    kernel = "median" if method == "median" else rejection
+    sig = SIGS[kernel]
+    kw = dict(device=dev, method=method, shifts=shifts, rejection=rejection,
+              sig=sig, normalize=normalize)
+    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    res = stack_frames(frames, **kw)
+    torch.cuda.synchronize()
+    launches = dict(rs.launches)
+    name = f"stack_frames({method}" + (
+        f", {rejection} {sig}" if method == "mean" else "") + f", normalize={normalize})"
+    rec.count(launches, name, kernel)
+    if res.data.shape != (c, h, w) or res.data.dtype != np.uint16:
+        fail(f"{name}: result {res.data.shape} {res.data.dtype}")
+    coeffs, norm = None, ""
+    if normalize != "none":
+        if not normalize.startswith("additive"):
+            fail(f"no reference for normalization {normalize}")
+        t0 = time.perf_counter()
+        coeffs = compute_normalization(ikss_stats(frames), 0, normalize)
+        norm = f"; its normalization alone {time.perf_counter() - t0:.3f} s"
+    flat = reference_flat(frames, shifts, method, coeffs)
+    got = frames_from_numpy(res.data[0], dev).reshape(-1)
+    errs, rl, rh = [], 0, 0
+    for a in range(0, flat.shape[1], CHUNK):
+        v = flat[:, a:a + CHUNK]
+        if method == "median":
+            errs.append(max_abs_diff(got[a:a + CHUNK], masked_median(v)))
+            continue
+        pm, pl, ph = reject_and_mean(v, rejection, sig)
+        errs.append(max_abs_diff(got[a:a + CHUNK], pm))
+        rl += int(pl.sum())
+        rh += int(ph.sum())
+    errs += [abs(int(res.rejection_low[0]) - rl), abs(int(res.rejection_high[0]) - rh)]
+    ndeg = int(rs.reject_cuda(flat, kernel, *sig)[1].sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stack_frames(frames, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    print(f"{label} {name} {f}x{c}x{h}x{w}: launches={launches}, degenerate "
+          f"pixels={ndeg}, rejected low={int(res.rejection_low[0])} "
+          f"high={int(res.rejection_high[0])}, image+counters vs plain "
+          f"max|diff|={max(errs)}; warm run {sec:.3f} s, {f / sec:.3f} frames/s"
+          f"{norm} [{card}]", flush=True)
+    rec.check(kernel, errs, f"{name} vs the plain version")
+    if kernel not in rec.ms:
+        k_ms, _ = cuda_ms(lambda: rs.reject_cuda(flat, kernel, *sig))
+        p_ms, _ = cuda_ms(chunked(lambda v: rs.reject_plain(v, kernel, *sig), flat))
+        rec.ms[kernel] = (k_ms, p_ms)
+        print(f"timing [{card}] {kernel} kernel at {f}x{h * w}: {k_ms:.3f} ms, "
+              f"plain version {p_ms:.3f} ms (median of {REPS} warm runs)", flush=True)
 
 
 def main() -> int:
@@ -104,13 +392,10 @@ def main() -> int:
         return 1
 
     from siriltpu_torch.ops.cuda import reject_stack as rs
-    from siriltpu_torch.ops.quality import quality_estimate_batch
-    from siriltpu_torch.ops.rejection import reject_and_mean
-    from siriltpu_torch.pipelines import register_stack as prs
     from siriltpu_torch.utils import build
-    from siriltpu_torch.utils.interop import frames_from_numpy, shifts_to_numpy
 
     dev = torch.device(DEVICE)
+    t_start = time.perf_counter()
     # ---- 1. device
     card = card_line()
     print(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -124,109 +409,38 @@ def main() -> int:
           f"nvcc {info['seconds']:.2f} s, total {time.perf_counter() - t0:.2f} s",
           flush=True)
     for line in info["log"].splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"build: ptxas {line.strip()}")
 
-    # ---- 3. kernel vs plain on the card
-    max_err = 0
-    cases = [(5, 1.5, 97), (7, 2.0, 97), (12, 2.5, 97), (25, 2.5, 3),
-             (64, 3.0, 97), (100, 3.0, 97), (256, 3.0, 97)]
-    for f, sig, every in cases:
-        vals = frames_from_numpy(make_case(f, CASE_P, every, seed=f), dev)
-        got = rs.reject_sigma_cuda(vals, sig, sig)
-        torch.cuda.synchronize()
-        want = rs.reject_sigma_plain(vals, sig, sig)
-        torch.cuda.synchronize()
-        errs = [max_abs_diff(g, w) for g, w in zip(got, want)]
-        fin = rs.reject_stack(vals, sig, sig, with_counters=True)
-        torch.cuda.synchronize()
-        ref = reject_and_mean(vals, "sigma", (sig, sig))
-        torch.cuda.synchronize()
-        ferrs = [max_abs_diff(g, w) for g, w in zip(fin, ref)]
-        ndeg = int(got[1].sum())
-        print(f"phase3 F={f} P={CASE_P} sig={sig} degenerate={ndeg} "
-              f"kernel-vs-plain max|diff| mean/degen/rejl/rejh={errs} "
-              f"final-vs-reject_and_mean mean/rejl/rejh={ferrs}", flush=True)
-        max_err = max(max_err, *errs, *ferrs)
-        if any(errs) or any(ferrs):
-            fail(f"kernel disagrees with its plain version at F={f}")
-    if max_err:
-        fail("phase 3 mismatch")
-
-    # ---- 4. main path at full size
-    bench = prs.RegisterStackBench(size=SIZE, nframes=NFRAMES, seed=0, device=dev)
-    t0 = time.perf_counter()
-    frames = bench.frames()
-    torch.cuda.synchronize()
-    print(f"phase4 frames {tuple(frames.shape)} {frames.dtype} made on the card "
-          f"in {time.perf_counter() - t0:.2f} s", flush=True)
-    rs.launches = 0
-    stacked, (sx, sy), quality = prs.register_and_stack(
-        frames, sel=bench.sel, sig=(SIG, SIG), return_device=True)
-    torch.cuda.synchronize()
-    launches = rs.launches
-    if not np.array_equal(shifts_to_numpy(sx, sy), -bench.shifts):
-        fail("recovered shifts differ from the negated generated ones")
-    if launches < 1:
-        fail("the main path did not launch the sigma kernel")
-    if tuple(stacked.shape) != (SIZE, SIZE) or stacked.dtype != torch.uint16:
-        fail(f"stacked image {tuple(stacked.shape)} {stacked.dtype}")
-    if quality.shape != (NFRAMES,) or not bool(torch.isfinite(quality).all()):
-        fail("quality is not finite of shape (F,)")
-    # the plain reference aligns with the gather form (the main path used
-    # the slice form) and stacks in 2^20-pixel chunks
-    flat = prs.align_frames_gather(frames, sx, sy).reshape(NFRAMES, -1)
-    kmean, krejl, krejh = rs.reject_stack(flat, SIG, SIG, with_counters=True)
-    torch.cuda.synchronize()
-    errs = [max_abs_diff(kmean, stacked.reshape(-1))]
-    for a in range(0, flat.shape[1], CHUNK):
-        pm, pl, ph = reject_and_mean(flat[:, a:a + CHUNK], "sigma", (SIG, SIG))
-        errs += [max_abs_diff(kmean[a:a + CHUNK], pm),
-                 max_abs_diff(krejl[a:a + CHUNK], pl),
-                 max_abs_diff(krejh[a:a + CHUNK], ph)]
-    ndeg = int(rs.reject_sigma_cuda(flat, SIG, SIG)[1].sum())
-    torch.cuda.synchronize()
-    print(f"phase4 main path {NFRAMES}x{SIZE}x{SIZE}: shifts exact, "
-          f"sigma kernel launches={launches}, degenerate pixels={ndeg}, "
-          f"rejected low={int(krejl.sum())} high={int(krejh.sum())}, "
-          f"stacked+counters vs plain max|diff|={max(errs)}", flush=True)
-    max_err = max(max_err, *errs)
-    if max_err:
-        fail("the stacked image or counters differ from the plain version")
-    del kmean, krejl, krejh
-
-    # ---- 5. timing
-    fps = bench.run(repeats=REPS)
-    sel_frames = prs._selection(frames, bench.sel)
-    ms = {}
-    ms["shifts"], (sx, sy) = cuda_ms(lambda: prs.compute_shifts(frames, 0, bench.sel))
-    ms["quality"], _ = cuda_ms(lambda: quality_estimate_batch(sel_frames))
-    ms["align"], aligned = cuda_ms(lambda: prs.align_frames_auto(frames, sx, sy))
-    flat = aligned.reshape(NFRAMES, -1)
-    ms["kernel"], raw = cuda_ms(lambda: rs.reject_sigma_cuda(flat, SIG, SIG))
-    # the fix-up writes in place, and writes the same values every run
-    ms["fixup"], _ = cuda_ms(lambda: rs.fix_degenerate(flat, *raw, SIG, SIG))
-
-    def plain(fn):
-        def run():
-            for a in range(0, flat.shape[1], CHUNK):
-                fn(flat[:, a:a + CHUNK])
-        return run
-
-    # the kernel's plain version, and the whole stack stage's (with the
-    # exact re-run of degenerate pixels), in 2^20-pixel chunks
-    ms["plain_kernel"], _ = cuda_ms(plain(
-        lambda v: rs.reject_sigma_plain(v, SIG, SIG)))
-    ms["plain_stack"], _ = cuda_ms(plain(
-        lambda v: reject_and_mean(v, "sigma", (SIG, SIG))))
-    print(f"timing [{card}] register+stack {NFRAMES}x{SIZE}x{SIZE}: "
-          f"{fps:.3f} frames/s end to end (mean of {REPS} warm runs); "
-          + " ".join(f"{k}_ms={v:.3f}" for k, v in ms.items()), flush=True)
+    rec = Record(rs.launches)
+    # ---- 3. every kernel vs its plain version
+    phase3(rs, rec, dev)
+    print(f"phase3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- 4-5. register + sigma stack, and its timing
+    phase4_5(rs, rec, dev, card)
+    torch.cuda.empty_cache()
+    print(f"phase5 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- 6. config 2: median and mean stacks of 50 x 2048 x 2048
+    frames, shifts = make_frames(*CONFIG2, seed=2, dev=dev)
+    for method, rejection in (("median", "none"), ("mean", "sigma"),
+                              ("mean", "percentile"), ("mean", "sigmedian")):
+        stack_config(rs, rec, dev, card, "phase6", frames, shifts, method,
+                     rejection, "none")
+    del frames
+    torch.cuda.empty_cache()
+    print(f"phase6 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- 7. config 3: winsorized mean stack of 1000 x 480 x 640
+    frames, shifts = make_frames(*CONFIG3, seed=3, dev=dev)
+    stack_config(rs, rec, dev, card, "phase7", frames, shifts, "mean",
+                 "winsorized", "additive_scaling")
+    print(f"phase7 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = {"kernels": [{
-        "name": "reject_sigma", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": ms["kernel"], "plain_ms": ms["plain_kernel"]}]}
+        "name": f"reject_{k}", "route": "cuda",
+        "source": f"siril-0.9_tpu/siriltpu_torch/csrc/reject_{k}.cu",
+        "replaces": f"{PALLAS}:{REPLACES[k]}", "launches": rec.launches[k],
+        "max_abs_err": rec.err[k], "ms": rec.ms[k][0], "plain_ms": rec.ms[k][1]}
+        for k in rs.launches]}
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

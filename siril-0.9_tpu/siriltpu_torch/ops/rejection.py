@@ -1,10 +1,10 @@
-"""Sigma-clip pixel rejection, vectorized over pixels — the plain PyTorch
-version of the CUDA sigma kernel and the exact fix-up for its degenerate
+"""Pixel rejection, vectorized over pixels — the plain PyTorch versions
+of the CUDA rejection kernels and the exact fix-up for their degenerate
 pixels.
 
-Port of the sigma subset of ``siriltpu.ops.rejection``. Reference:
-src/stacking/stacking.c:1148-1160 (clip predicate) and :1674-1694 (the
-per-pixel loop). Semantics frozen, as in the JAX package:
+Port of ``siriltpu.ops.rejection`` (linearfit is not ported yet).
+Reference: src/stacking/stacking.c:1128-1186 (clip predicates) and
+:1656-1788 (the per-pixel loops). Semantics frozen, as in the JAX package:
 
 - the per-pixel cross-frame vector is sorted, then iteratively clipped
   around the GSL sorted-median using the GSL SAMPLE standard deviation
@@ -14,6 +14,13 @@ per-pixel loop). Semantics frozen, as in the JAX package:
   accumulates across passes (stacking.c:1684-1688). Positions after the
   break keep *stale* flags in the reused ``rejected[]`` buffer, and the
   removal loop consumes them without counting them (see _stale_pass);
+- SIGMEDIAN replaces rejected values by round_to_WORD(median) instead of
+  removing them (:1696-1708);
+- WINSORIZED iterates (clamp to median +- 1.5 sigma, re-measure the median
+  and 1.134 sd) until |sigma - sigma0| / sigma0 <= 5e-4, then sigma-clips
+  the ORIGINAL values with the converged sigma and median (:1710-1748);
+- PERCENTILE is one pass on the relative distance from the median
+  (:1130-1143), removing only if N > 1 (:1667-1673);
 - final pixel = round_to_WORD(mean of survivors) (:1790-1794).
 
 Every statistic is computed as in the JAX package, down to the order of
@@ -30,6 +37,7 @@ import torch
 
 from siriltpu_torch.ops.sortnet import sort_axis0
 from siriltpu_torch.utils.interop import i32_to_u16, to_float32, u16_to_i32
+from siriltpu_torch.utils.rounding import round_to_word_f
 
 Tensor = torch.Tensor
 
@@ -38,9 +46,8 @@ Tensor = torch.Tensor
 # bound must stay well above F.
 MAX_ITERS = 512
 
-# rejections of siriltpu that are not ported yet (ROADMAP.md Queue 1 item 2)
-_NOT_PORTED = (None, "none", "percentile", "sigmedian", "winsorized",
-               "linearfit")
+# invalid slots of the winsorized working copy sort above every value
+_INVALID = 1e9
 
 
 def _f32(x: float, device) -> Tensor:
@@ -83,11 +90,18 @@ def _gsl_sd(vals: Tensor, valid: Tensor, n: Tensor) -> Tensor:
     deviations are centred on the upper middle order statistic and the
     squares use a hi/lo 8-bit split. One final f32 combine, in the JAX
     package's order of operations."""
-    nf = n.to(torch.float32)
     cum = torch.cumsum(valid, dim=0, dtype=torch.int32)
     anchor = torch.floor(_kth_valid(vals, cum, n // 2, valid)).to(torch.int32)
     vi = torch.where(valid, vals, 0.0).to(torch.int32)
-    d = torch.where(valid, vi - anchor[None, :], 0)
+    return _sd_of_deviations(torch.where(valid, vi - anchor[None, :], 0), n)
+
+
+def _sd_of_deviations(d: Tensor, n: Tensor) -> Tensor:
+    """Sample sd of n values from their (F, P) int32 deviations ``d`` from
+    an anchor (0 where a value is not counted): exact integer sums of an
+    8-bit split of |d|, then one f32 combine in the JAX package's order of
+    operations."""
+    nf = n.to(torch.float32)
     s1 = d.sum(dim=0)
     ad = d.abs()
     hi8 = ad >> 8
@@ -200,6 +214,160 @@ def reject_sigma(vals: Tensor, siglow: float, sighigh: float,
     return valid, sv, rejl, rejh
 
 
+def reject_sigmedian(vals: Tensor, siglow: float, sighigh: float):
+    """SIGMEDIAN (stacking.c:1696-1708): rejected values are replaced by
+    round_to_WORD(median) and the vector is sorted again; nothing is
+    removed. The first pass always runs. Returns (valid, values, rejl,
+    rejh)."""
+    f, p = vals.shape
+    dev = vals.device
+    v = to_float32(sort_axis0(vals))
+    valid = torch.ones((f, p), dtype=torch.bool, device=dev)
+    n = torch.full((p,), f, dtype=torch.int32, device=dev)
+    done = torch.zeros(p, dtype=torch.bool, device=dev)
+    rejl = torch.zeros(p, dtype=torch.int32, device=dev)
+    rejh = torch.zeros_like(rejl)
+    it = 0
+    # one host sync per pass: the loop runs until every pixel is done
+    while it < MAX_ITERS and not bool(done.all()):
+        sigma = _gsl_sd(v, valid, n)
+        median = _gsl_median(v, valid, n)
+        low, high = _sigma_flags(v, valid, median, sigma, siglow, sighigh)
+        flags = low | high
+        nrep = flags.sum(dim=0)
+        medw = round_to_word_f(median)
+        v = sort_axis0(torch.where(flags & ~done[None, :], medw[None, :], v))
+        rejl = rejl + torch.where(~done, low.sum(dim=0).to(torch.int32), 0)
+        rejh = rejh + torch.where(~done, high.sum(dim=0).to(torch.int32), 0)
+        done = done | (nrep == 0) | (n <= 3)
+        it += 1
+    return valid, v, rejl, rejh
+
+
+def reject_winsorized(vals: Tensor, siglow: float, sighigh: float):
+    """WINSORIZED sigma clipping (stacking.c:1710-1748), masked
+    formulation, with the reference's stale-buffer quirks (_stale_pass).
+
+    All statistics are centred on an integer anchor, the middle order
+    statistic, as in the JAX package: every step is shift-equivariant,
+    and centring keeps the f32 fixed point away from ulp(65535). Returns
+    (valid mask over the SORTED values, sorted float32 values, rejl,
+    rejh)."""
+    f, p = vals.shape
+    dev = vals.device
+    sv_orig = to_float32(sort_axis0(vals))
+    anchor = torch.floor(sv_orig[f // 2])
+    sv = sv_orig - anchor[None, :]
+    lo_clip = -anchor
+    hi_clip = 65535.0 - anchor
+    c15, c1134 = _f32(1.5, dev), _f32(1.134, dev)
+    tiny, tol = _f32(1e-30, dev), _f32(0.0005, dev)
+
+    def round_shift(x):
+        r = torch.floor(x + 0.5)
+        r = torch.where(x <= lo_clip, lo_clip, r)
+        return torch.where(x > hi_clip, hi_clip, r)
+
+    def winsor_converge(valid, n):
+        """The fixed point: winsorize until sigma converges. Returns
+        (median, sigma)."""
+        sig = _gsl_sd(sv, valid, n)
+        med = _gsl_median(sv, valid, n)
+        w = torch.where(valid, sv, _INVALID)
+        conv = torch.zeros(p, dtype=torch.bool, device=dev)
+        it = 0
+        # one host sync per step: it runs until every pixel converged
+        while it < MAX_ITERS and not bool(conv.all()):
+            m0 = med - c15 * sig
+            m1 = med + c15 * sig
+            clamped = torch.where(
+                w < m0[None, :], round_shift(m0)[None, :],
+                torch.where(w > m1[None, :], round_shift(m1)[None, :], w))
+            # clamping the tails is monotone: the sorted order (and the
+            # _INVALID slots at the top) survive without a re-sort
+            wv = torch.where(w < _INVALID / 2, clamped, w)
+            wvalid = wv < _INVALID / 2
+            med_new = _gsl_median(wv, wvalid, n)
+            sig_new = c1134 * _gsl_sd(wv, wvalid, n)
+            newconv = (sig <= 0) | (
+                torch.abs(sig_new - sig) / torch.maximum(sig, tiny) <= tol)
+            # freeze converged pixels
+            w = torch.where(conv[None, :], w, wv)
+            med = torch.where(conv, med, med_new)
+            sig = torch.where(conv, sig, sig_new)
+            conv = conv | newconv
+            it += 1
+        return med, sig
+
+    valid = torch.ones((f, p), dtype=torch.bool, device=dev)
+    done = torch.zeros(p, dtype=torch.bool, device=dev)
+    z = torch.zeros(p, dtype=torch.int32, device=dev)
+    r, rejl, rejh = z, z, z
+    buf = torch.zeros((f, p), dtype=torch.int8, device=dev)
+    it = 0
+    while it < MAX_ITERS and not bool(done.all()):
+        n = valid.sum(dim=0).to(torch.int32)
+        median, sigma = winsor_converge(valid, n)
+        low, high = _sigma_flags(sv, valid, median, sigma, siglow, sighigh)
+        new_valid, new_buf, r_new, removed, cnt_l, cnt_h = _stale_pass(
+            valid, buf, r, low, high, n)
+        n_new = n - removed
+        upd = ~done
+        valid = torch.where(upd[None, :], new_valid, valid)
+        buf = torch.where(upd[None, :], new_buf, buf)
+        rejl = rejl + torch.where(upd, cnt_l, 0)
+        rejh = rejh + torch.where(upd, cnt_h, 0)
+        r = torch.where(upd, r_new, r)
+        done = done | (removed == 0) | (n_new <= 3)
+        it += 1
+    return valid, sv_orig, rejl, rejh
+
+
+def reject_percentile(vals: Tensor, plow: float, phigh: float):
+    """PERCENTILE clipping (stacking.c:1130-1143, loop :1656-1673): one
+    pass on the relative distance from the median; values are removed
+    only if N > 1. Returns (valid, sorted float32 values, rejl, rejh)."""
+    f, p = vals.shape
+    dev = vals.device
+    sv = to_float32(sort_axis0(vals))
+    valid = torch.ones((f, p), dtype=torch.bool, device=dev)
+    n = torch.full((p,), f, dtype=torch.int32, device=dev)
+    median = _gsl_median(sv, valid, n)
+    medsafe = torch.where(median == 0, _f32(1e-30, dev), median)
+    low = (median[None, :] - sv) / medsafe[None, :] > _f32(plow, dev)
+    high = (sv - median[None, :]) / medsafe[None, :] > _f32(phigh, dev)
+    flags = low | high
+    if f > 1:
+        # removal scans ascending and stops at N == 1: if every value is
+        # flagged, the last (largest) one survives (stacking.c:1667-1673)
+        all_flagged = flags.all(dim=0)
+        is_last = torch.arange(f, device=dev)[:, None] == f - 1
+        valid = torch.where(all_flagged[None, :], is_last, ~flags)
+    return (valid, sv, low.sum(dim=0).to(torch.int32),
+            high.sum(dim=0).to(torch.int32))
+
+
+def reject_none(vals: Tensor):
+    """No rejection: every value survives. Returns (valid, float32
+    values, rejl, rejh)."""
+    f, p = vals.shape
+    z = torch.zeros(p, dtype=torch.int32, device=vals.device)
+    return (torch.ones((f, p), dtype=torch.bool, device=vals.device),
+            to_float32(vals), z, z)
+
+
+def masked_median(vals: Tensor) -> Tensor:
+    """Median stack pixel op (stacking.c:765-767): the GSL sorted median
+    of every pixel's values, truncated toward zero to WORD as the C
+    assignment does. The plain version of the CUDA median kernel.
+    uint16 (P,)."""
+    f, p = vals.shape
+    sv = to_float32(sort_axis0(vals))
+    valid = torch.ones((f, p), dtype=torch.bool, device=vals.device)
+    n = torch.full((p,), f, dtype=torch.int32, device=vals.device)
+    return i32_to_u16(_gsl_median(sv, valid, n).to(torch.int32))
+
+
 def reject_sigma_window(vals: Tensor, siglow: float, sighigh: float,
                         presorted: bool = False):
     """SIGMA rejection, window formulation — the plain version of the CUDA
@@ -229,30 +397,16 @@ def reject_sigma_window(vals: Tensor, siglow: float, sighigh: float,
 
     def win_stats(lo, hi):
         n = hi - lo
-        nf = n.to(torch.float32)
         mask = (iota >= lo[None, :]) & (iota < hi[None, :])
-        k1 = lo + (n - 1) // 2
-        k2 = lo + n // 2
-        v1 = torch.gather(svi, 0, k1[None, :].long())[0]
-        v2 = torch.gather(svi, 0, k2[None, :].long())[0]
+        v1 = _at(svi, lo + (n - 1) // 2)
+        v2 = _at(svi, lo + n // 2)
         median = 0.5 * (v1 + v2).to(torch.float32)
         # exact-integer sigma (see _gsl_sd): centre on the low median
-        d = torch.where(mask, svi - v1[None, :], 0)
-        s1 = d.sum(dim=0)
-        ad = d.abs()
-        hi8 = ad >> 8
-        lo8 = ad & 255
-        s2 = ((hi8 * hi8).sum(dim=0).to(torch.float32) * 65536.0
-              + (hi8 * lo8).sum(dim=0).to(torch.float32) * 512.0
-              + (lo8 * lo8).sum(dim=0).to(torch.float32))
-        s1f = s1.to(torch.float32)
-        var = ((s2 - s1f * s1f / torch.clamp(nf, min=1.0))
-               / torch.clamp(nf - 1.0, min=1.0))
-        sigma = torch.where(n > 1, torch.sqrt(torch.clamp(var, min=0.0)), 0.0)
+        sigma = _sd_of_deviations(torch.where(mask, svi - v1[None, :], 0), n)
         return n, mask, median, sigma
 
     z = torch.zeros(p, dtype=torch.int32, device=dev)
-    lo, hi, r, rejl, rejh = z, torch.full_like(z, f), z, z, z
+    lo, hi, r = z, torch.full_like(z, f), z
     done = torch.zeros(p, dtype=torch.bool, device=dev)
     degen = torch.zeros_like(done)
     it = 0
@@ -261,27 +415,134 @@ def reject_sigma_window(vals: Tensor, siglow: float, sighigh: float,
         n, mask, median, sigma = win_stats(lo, hi)
         low = mask & (median[None, :] - svf > sl * sigma[None, :])
         high = mask & (svf - median[None, :] > sh * sigma[None, :])
-        nlow = low.sum(dim=0).to(torch.int32)
-        nhigh = high.sum(dim=0).to(torch.int32)
-        # the C scan breaks iff n - (r + c) <= 4 for some prefix count c
-        # (max c = nlow + nhigh), incl. c == 0 when n - r <= 4 already
-        removed = nlow + nhigh
-        hits_break = (n - r - removed) <= 4
-        upd = ~done & ~hits_break
-        lo = torch.where(upd, lo + nlow, lo)
-        hi = torch.where(upd, hi - nhigh, hi)
-        rejl = rejl + torch.where(upd, nlow, 0)
-        rejh = rejh + torch.where(upd, nhigh, 0)
-        r = torch.where(upd, r + removed, r)
-        degen = degen | (~done & hits_break)
-        done = done | hits_break | (removed == 0) | ((hi - lo) <= 3)
+        lo, hi, r, done, degen = _window_step(low, high, n, lo, hi, r, done, degen)
         it += 1
-    # exact integer mean of the surviving window
+    return _window_mean(svi, iota, lo, hi), lo, f - hi, degen
+
+
+def reject_winsorized_window(vals: Tensor, siglow: float, sighigh: float,
+                             presorted: bool = False):
+    """WINSORIZED rejection, window formulation — the plain version of the
+    CUDA winsorized kernel, and the PyTorch counterpart of the Pallas
+    winsorized body (siriltpu/ops/pallas/reject_stack.py:611-795), as
+    reject_sigma_window is the sigma body's.
+
+    Per pixel, on the sorted vector shifted by anchor = x[F // 2]: each
+    pass of the outer clip starts the fixed point from the window [lo, hi)
+    (its median, and its sd anchored on element lo + n // 2) and re-seeds
+    the working copy from the unclamped values; a fixed-point step clamps
+    the window to round_shift(med -+ 1.5 sigma) and takes sigma = 1.134 sd
+    of the clamped window, again anchored on lo + n // 2, until
+    |dsigma| / sigma <= 5e-4 or sigma <= 0, at most MAX_ITERS steps. The
+    outer clip is sigma's predicate on the unclamped values, with sigma's
+    DEGENERATE rule; callers re-run degenerate pixels through
+    reject_winsorized.
+
+    Returns (mean uint16 (P,), rejl, rejh, degenerate bool (P,))."""
+    f, p = vals.shape
+    dev = vals.device
+    sv = vals if presorted else sort_axis0(vals)
+    if sv.dtype == torch.uint16:
+        sv = u16_to_i32(sv)
+    sv = sv.to(torch.int32)
+    iota = torch.arange(f, dtype=torch.int32, device=dev)[:, None]
+    sl, sh = _f32(siglow, dev), _f32(sighigh, dev)
+    c15, c1134 = _f32(1.5, dev), _f32(1.134, dev)
+    tiny, tol = _f32(1e-30, dev), _f32(0.0005, dev)
+    anchor = sv[f // 2]
+    svi = sv - anchor[None, :]
+    svf = svi.to(torch.float32)
+    lo_clip = (-anchor).to(torch.float32)
+    hi_clip = 65535.0 - anchor.to(torch.float32)
+
+    def round_shift(t):
+        r = torch.floor(t + 0.5)
+        r = torch.where(t <= lo_clip, lo_clip, r)
+        return torch.where(t > hi_clip, hi_clip, r).to(torch.int32)
+
+    def stats(v, lo, n, mask):
+        """(median, sd) of v's window, the sd anchored on lo + n // 2."""
+        a = _at(v, lo + n // 2)
+        median = 0.5 * (_at(v, lo + (n - 1) // 2) + a).to(torch.float32)
+        return median, _sd_of_deviations(torch.where(mask, v - a[None, :], 0), n)
+
+    z = torch.zeros(p, dtype=torch.int32, device=dev)
+    lo, hi, r = z, torch.full_like(z, f), z
+    done = torch.zeros(p, dtype=torch.bool, device=dev)
+    degen = torch.zeros_like(done)
+    it = 0
+    # one host sync per pass and per step: each loop runs until every
+    # pixel is done (converged)
+    while it < MAX_ITERS and not bool(done.all()):
+        n = hi - lo
+        mask = (iota >= lo[None, :]) & (iota < hi[None, :])
+        med, sig = stats(svi, lo, n, mask)
+        w = svi
+        conv = done
+        iit = 0
+        while iit < MAX_ITERS and not bool(conv.all()):
+            r0 = round_shift(med - c15 * sig)
+            r1 = round_shift(med + c15 * sig)
+            # the integer clamp equals the reference's where-chain on
+            # integer values, and keeps the window sorted
+            wv = torch.where(mask, torch.minimum(torch.maximum(w, r0[None, :]),
+                                                 r1[None, :]), w)
+            med_new, sd_new = stats(wv, lo, n, mask)
+            sig_new = c1134 * sd_new
+            newconv = (sig <= 0) | (
+                torch.abs(sig_new - sig) / torch.maximum(sig, tiny) <= tol)
+            w = torch.where(conv[None, :], w, wv)
+            med = torch.where(conv, med, med_new)
+            sig = torch.where(conv, sig, sig_new)
+            conv = conv | newconv
+            iit += 1
+        low = mask & (med[None, :] - svf > sl * sig[None, :])
+        high = mask & (svf - med[None, :] > sh * sig[None, :])
+        lo, hi, r, done, degen = _window_step(low, high, n, lo, hi, r, done, degen)
+        it += 1
+    return _window_mean(sv, iota, lo, hi), lo, f - hi, degen
+
+
+def _window_step(low: Tensor, high: Tensor, n: Tensor, lo: Tensor, hi: Tensor,
+                 r: Tensor, done: Tensor, degen: Tensor):
+    """One pass of a windowed clip on its (F, P) low and high flags: move
+    the window [lo, hi) of every pixel not done, and end the pixels that
+    removed nothing or keep at most 3 values. The C scan breaks iff
+    n - (r + c) <= 4 for some prefix count c of flags (max c = nlow +
+    nhigh, incl. c == 0 when n - r <= 4 already): such a pixel is frozen
+    and flagged DEGENERATE. Every counted low reject advanced lo and every
+    high one lowered hi, so the counters are lo and F - hi. Returns (lo,
+    hi, r, done, degen)."""
+    nlow = low.sum(dim=0).to(torch.int32)
+    nhigh = high.sum(dim=0).to(torch.int32)
+    removed = nlow + nhigh
+    hits_break = (n - r - removed) <= 4
+    upd = ~done & ~hits_break
+    lo = torch.where(upd, lo + nlow, lo)
+    hi = torch.where(upd, hi - nhigh, hi)
+    r = torch.where(upd, r + removed, r)
+    degen = degen | (~done & hits_break)
+    done = done | hits_break | (removed == 0) | ((hi - lo) <= 3)
+    return lo, hi, r, done, degen
+
+
+def _at(v: Tensor, k: Tensor) -> Tensor:
+    """v[k[j], j] for every pixel j."""
+    return torch.gather(v, 0, k[None, :].long())[0]
+
+
+def _window_mean(sv: Tensor, iota: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
+    """round_to_WORD of the exact integer mean of sv[lo:hi] per pixel.
+    uint16."""
     mask = (iota >= lo[None, :]) & (iota < hi[None, :])
     n = hi - lo
-    s = torch.where(mask, svi, 0).sum(dim=0)
+    s = torch.where(mask, sv, 0).sum(dim=0)
     mean = torch.where(n > 0, (2 * s + n) // torch.clamp(2 * n, min=1), 0)
-    return i32_to_u16(mean.clamp(0, 65535)), rejl, rejh, degen
+    return i32_to_u16(mean.clamp(0, 65535))
+
+
+_MASKED = {"sigma_masked": reject_sigma, "percentile": reject_percentile,
+           "sigmedian": reject_sigmedian, "winsorized": reject_winsorized}
 
 
 def reject_and_mean(vals: Tensor, rejection: str, sig=(3.0, 3.0)):
@@ -292,8 +553,9 @@ def reject_and_mean(vals: Tensor, rejection: str, sig=(3.0, 3.0)):
     ``sigma`` is a HYBRID: the window formulation handles every pixel,
     and the rare pixels that hit the reference's degenerate mid-scan
     break are re-run through the reference-exact masked formulation.
-    ``sigma_masked`` runs the masked loop for everything. The other
-    rejections are not ported yet and raise NotImplementedError."""
+    ``sigma_masked`` runs the masked loop for everything, and so do
+    percentile, sigmedian and winsorized, as in the JAX package.
+    linearfit is not ported yet and raises NotImplementedError."""
     siglow, sighigh = float(sig[0]), float(sig[1])
     if rejection == "sigma":
         sv = sort_axis0(vals)
@@ -307,15 +569,20 @@ def reject_and_mean(vals: Tensor, rejection: str, sig=(3.0, 3.0)):
         rejl = torch.where(degen, srl, rejl)
         rejh = torch.where(degen, srh, rejh)
         return mean, rejl, rejh
-    if rejection == "sigma_masked":
-        valid, v, rejl, rejh = reject_sigma(to_float32(vals), siglow, sighigh)
-        return _mean_of_survivors(v, valid), rejl, rejh
-    if rejection in _NOT_PORTED:
+    if rejection in ("none", None):
+        valid, v, rejl, rejh = reject_none(vals)
+    elif rejection in _MASKED:
+        valid, v, rejl, rejh = _MASKED[rejection](to_float32(vals), siglow,
+                                                  sighigh)
+    elif rejection == "linearfit":
         raise NotImplementedError(
-            f"rejection {rejection!r} is not ported to siriltpu_torch yet "
+            "rejection 'linearfit' is not ported to siriltpu_torch yet "
             "(ROADMAP.md Queue 1 item 2)")
-    raise ValueError(f"unknown rejection {rejection!r}")
+    else:
+        raise ValueError(f"unknown rejection {rejection!r}")
+    return _mean_of_survivors(v, valid), rejl, rejh
 
 
 __all__ = ["reject_and_mean", "reject_sigma", "reject_sigma_window",
-           "MAX_ITERS"]
+           "reject_sigmedian", "reject_winsorized", "reject_winsorized_window",
+           "reject_percentile", "reject_none", "masked_median", "MAX_ITERS"]

@@ -1,5 +1,6 @@
 """Fused register + stack pipeline — the framework's flagship workload:
-register and sigma-clip stack a 100-frame 4096x4096 uint16 mono sequence.
+register and sigma-clip stack a 100-frame 4096x4096 uint16 mono sequence
+(any rejection with a kernel runs the same way).
 
 Port of ``siriltpu.pipelines.register_stack``. Four stages over a
 device-resident (F, H, W) uint16 frame batch:
@@ -8,8 +9,8 @@ device-resident (F, H, W) uint16 frame batch:
    square registration selection of every frame;
 2. ``quality_estimate_batch``: PIPP quality on the same selections;
 3. ``align_frames_auto``: integer zero-fill shift of every frame;
-4. ``reject_stack``: the CUDA sigma kernel (sort + clip + mean per pixel)
-   plus the exact re-run of its degenerate pixels.
+4. ``reject_stack``: the rejection's CUDA kernel (sort + clip + mean per
+   pixel) plus the exact re-run of its degenerate pixels.
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ import numpy as np
 import torch
 
 from siriltpu_torch.ops.cuda.reject_stack import reject_stack
+from siriltpu_torch.ops.rejection import reject_and_mean
 from siriltpu_torch.ops.fftreg import _ref_fft, phase_correlate
 from siriltpu_torch.ops.quality import quality_estimate_batch
+from siriltpu_torch.utils.build import KERNELS
 from siriltpu_torch.utils.interop import (i32_to_u16, shifts_to_numpy,
                                           u16_to_numpy)
 
@@ -122,12 +125,10 @@ def register_and_stack(frames_dev: torch.Tensor, *, sel: Tuple[int, int, int],
     ``block_rows`` and ``keep_frames`` are accepted for the signature of
     ``siriltpu``'s function and have no effect: the kernel stacks all rows
     in one launch, and eager PyTorch never donates the caller's frames.
-    Only ``rejection="sigma"`` is ported.
+    Every rejection with a kernel (sigma, median, percentile, sigmedian,
+    winsorized) runs it; linearfit is not ported yet and raises
+    NotImplementedError.
     """
-    if rejection != "sigma":
-        raise NotImplementedError(
-            f"register_and_stack with rejection {rejection!r} is not ported "
-            "yet (ROADMAP.md Queue 2)")
     f, h, w = frames_dev.shape
     sx, sy = compute_shifts(frames_dev, ref_index, sel)
     quality = None
@@ -136,8 +137,15 @@ def register_and_stack(frames_dev: torch.Tensor, *, sel: Tuple[int, int, int],
         # not the full frame (registration.c:264,309)
         quality = quality_estimate_batch(_selection(frames_dev, sel))
     aligned = align_frames_auto(frames_dev, sx, sy)
-    stacked = reject_stack(aligned.reshape(f, h * w), float(sig[0]),
-                           float(sig[1])).reshape(h, w)
+    flat = aligned.reshape(f, h * w)
+    if rejection in KERNELS:
+        # the fused kernels: sort + rejection + mean per pixel in one pass
+        # (sigma and winsorized with the exact degenerate-pixel re-run)
+        stacked = reject_stack(flat, rejection, float(sig[0]), float(sig[1]))
+    else:
+        # no kernel (none, sigma_masked): plain PyTorch on the device
+        stacked = reject_and_mean(flat, rejection, sig)[0]
+    stacked = stacked.reshape(h, w)
     if return_device:
         return stacked, (sx, sy), quality
     return (u16_to_numpy(stacked), shifts_to_numpy(sx, sy),

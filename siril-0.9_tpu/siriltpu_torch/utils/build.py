@@ -1,11 +1,14 @@
-"""Build the port's CUDA library from ``csrc/*.cu`` and load it.
+"""Build the port's CUDA library from ``csrc/`` and load it.
 
 The sources have a plain C interface, so they are compiled by ``nvcc``
-alone into one shared library and bound with ``ctypes``; no PyTorch
-header is compiled. The library goes into ``siriltpu_torch/_build/``
-under a name keyed by a hash of the sources and flags, and is built at
-first use: importing this module needs no ``nvcc``. A missing compiler
-or a failed build raises; there is nothing to fall back to.
+alone and bound with ``ctypes``; no PyTorch header is compiled. Every
+``*.cu`` is compiled to an object by its own ``nvcc``, all started
+together, and the objects are linked into one shared library. The library
+goes into ``siriltpu_torch/_build/`` under a name keyed by a hash of every
+file under ``csrc/`` (sources and the headers they share) and of the
+flags, and is built at first use: importing this module needs no
+``nvcc``. A missing compiler or a failed build raises; there is nothing
+to fall back to.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import time
@@ -23,11 +27,16 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
+#: the kernels of the library: each has the C entry reject_<name>_u16
+KERNELS = ("sigma", "median", "percentile", "sigmedian", "winsorized")
+
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no product may be fused into an add, so the f32 sd combine
 # rounds exactly as the JAX package's does. No fast math: IEEE div/sqrt.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+COMPILE_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+                 "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*_ARCH, "-shared")
+_SUFFIXES = (".cu", ".cuh", ".h")
 
 
 def _nvcc() -> str:
@@ -40,20 +49,36 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def _sources():
-    srcs = sorted(CSRC_DIR.glob("*.cu"))
-    if not srcs:
-        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    return srcs
+def _files(csrc_dir: Path):
+    """Every source and header under ``csrc_dir``, sorted."""
+    files = sorted(p for p in csrc_dir.rglob("*")
+                   if p.is_file() and p.suffix in _SUFFIXES)
+    if not any(p.suffix == ".cu" for p in files):
+        raise RuntimeError(f"no CUDA sources under {csrc_dir}")
+    return files
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+def library_path(csrc_dir: Path = CSRC_DIR) -> Path:
+    """Where the library for the files under ``csrc_dir`` and the flags
+    lives."""
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for path in _files(csrc_dir):
+        h.update(str(path.relative_to(csrc_dir)).encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"libsiriltpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the output of any that
+    fails. Returns their combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def build() -> dict:
@@ -65,35 +90,38 @@ def build() -> dict:
         return {"path": out, "built": False, "seconds": 0.0, "log": ""}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    # compile into a private directory, then rename the library into
+    # place: concurrent builds never load a half-written one
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    srcs = [p for p in _files(CSRC_DIR) if p.suffix == ".cu"]
+    objs = [tmp / f"{s.stem}.o" for s in srcs]
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
+        log = _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(srcs, objs)])
+        lib = tmp / out.name
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", str(lib), *map(str, objs)]])
+        os.replace(lib, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     return {"path": out, "built": True,
-            "seconds": time.perf_counter() - t0,
-            "log": proc.stdout + proc.stderr}
+            "seconds": time.perf_counter() - t0, "log": log}
 
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded library with every C function's signature declared."""
     lib = ctypes.CDLL(str(build()["path"]))
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.reject_sigma_u16.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
-                                     ctypes.c_float, ctypes.c_float, ptr]
-    lib.reject_sigma_u16.restype = ctypes.c_int
+    ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    for name in KERNELS:
+        fn = getattr(lib, f"reject_{name}_u16")
+        # vals, ld, scratch, mean, degen, rejl, rejh, f, p, tile,
+        # siglow, sighigh, stream
+        fn.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
+                       f32, f32, ptr]
+        fn.restype = ctypes.c_int
     return lib
 
 
-__all__ = ["build", "library", "library_path", "CSRC_DIR", "BUILD_DIR"]
+__all__ = ["build", "library", "library_path", "KERNELS", "CSRC_DIR",
+           "BUILD_DIR"]

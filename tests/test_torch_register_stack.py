@@ -70,10 +70,44 @@ def test_register_and_stack_matches_jax():
     np.testing.assert_array_equal(sx.numpy(), want_shifts[:, 0])
 
 
+@pytest.mark.parametrize("rejection,sig", [
+    ("percentile", (0.2, 0.1)), ("sigmedian", (3.0, 3.0)),
+    ("winsorized", (3.0, 3.0)), ("median", (0.0, 0.0))])
+def test_register_and_stack_fused_rejections_match_jax(rejection, sig):
+    """Every rejection with a kernel, through the whole slice, against
+    JAX register_and_stack. JAX runs median only on the TPU (its CPU
+    route has no median rejection), so the median stack is held to JAX's
+    align and masked_median instead."""
+    from siriltpu.ops.rejection import masked_median
+
+    n, h, w = 8, 96, 96
+    gen = np.random.default_rng(5).integers(-5, 6, size=(n, 2))
+    gen[0] = 0
+    frames, _, _ = make_sequence_frames(n, h, w, seed=5, shifts=gen,
+                                        noise_sigma=6.0)
+    mono = frames[:, 0]
+    sel = (16, 16, 64)
+    img, shifts, _ = trs.register_and_stack(
+        frames_from_numpy(mono, "cpu"), sel=sel, rejection=rejection, sig=sig,
+        with_quality=False)
+    np.testing.assert_array_equal(shifts, -gen)
+    if rejection == "median":
+        aligned = jrs._align_frames_impl(jnp.asarray(mono), jnp.asarray(shifts[:, 0]),
+                                         jnp.asarray(shifts[:, 1]))
+        want_img = np.asarray(masked_median(
+            aligned.reshape(n, h * w).astype(jnp.float32))).reshape(h, w)
+    else:
+        want_img, want_shifts, _ = jrs.register_and_stack(
+            jnp.asarray(mono), sel=sel, rejection=rejection, sig=sig,
+            with_quality=False)
+        np.testing.assert_array_equal(shifts, want_shifts)
+    np.testing.assert_array_equal(img, want_img)
+
+
 def test_register_and_stack_rejects_unported_and_bad_selection():
     frames = frames_from_numpy(np.zeros((3, 32, 32), np.uint16), "cpu")
     with pytest.raises(NotImplementedError):
-        trs.register_and_stack(frames, sel=(0, 0, 16), rejection="winsorized")
+        trs.register_and_stack(frames, sel=(0, 0, 16), rejection="linearfit")
     with pytest.raises(ValueError):
         trs.register_and_stack(frames, sel=(20, 0, 16))
 

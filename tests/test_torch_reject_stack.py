@@ -1,13 +1,13 @@
-"""siriltpu_torch.ops.cuda.reject_stack: the wrapper's CPU route against
-the JAX fused kernel (Pallas, interpret mode), and the CUDA kernel against
-its plain version on the card.
+"""siriltpu_torch.ops.cuda.reject_stack: the dispatcher's CPU route
+against the JAX fused kernels (Pallas, interpret mode), and each CUDA
+kernel against its plain version on the card.
 
 The CUDA cases carry the ``cuda`` marker and skip without a card. They
 need neither JAX nor siriltpu, so on a machine with a card and without
 JAX they run with:
 
     PYTHONPATH=siril-0.9_tpu python -m pytest --noconftest -p no:cacheprovider \\
-        -m cuda tests/test_torch_reject_stack.py
+        -m cuda tests/test_torch_reject_stack.py tests/test_torch_stacking.py
 """
 
 import os
@@ -22,6 +22,7 @@ torch.set_num_threads(2)
 
 from siriltpu_torch.ops import rejection as trej  # noqa: E402
 from siriltpu_torch.ops.cuda import reject_stack as rs  # noqa: E402
+from siriltpu_torch.utils.build import KERNELS  # noqa: E402
 from siriltpu_torch.utils.interop import frames_from_numpy  # noqa: E402
 
 PKG_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -54,15 +55,78 @@ def test_cpu_route_matches_pallas_interpret(F):
     vals = make_vals(F, 256)
     want = reject_stack_pallas(jnp.asarray(vals), "sigma", 2.5, 2.5, tile=256,
                                interpret=True, with_counters=True)
-    got = rs.reject_stack(frames_from_numpy(vals, "cpu"), 2.5, 2.5,
+    got = rs.reject_stack(frames_from_numpy(vals, "cpu"), "sigma", 2.5, 2.5,
                           with_counters=True)
     for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
         np.testing.assert_array_equal(_ints(g), np.asarray(w).astype(np.int32),
                                       err_msg=name)
     # the mean-only form returns the same mean
     np.testing.assert_array_equal(
-        _ints(rs.reject_stack(frames_from_numpy(vals, "cpu"), 2.5, 2.5)),
+        _ints(rs.reject_stack(frames_from_numpy(vals, "cpu"), "sigma", 2.5, 2.5)),
         _ints(got[0]))
+
+
+#: (siglow, sighigh) per rejection; percentile takes (plow, phigh)
+SIGS = {"sigma": (2.5, 2.5), "median": (0.0, 0.0), "percentile": (0.2, 0.1),
+        "sigmedian": (3.0, 3.0), "winsorized": (2.5, 2.5)}
+
+
+@pytest.mark.parametrize("F", [12, 25, 64])
+@pytest.mark.parametrize("rejection", ["median", "percentile", "sigmedian",
+                                       "winsorized"])
+def test_cpu_route_matches_pallas_interpret_fused(rejection, F):
+    """The other four Pallas branches. The data needs fewer than 50 clip
+    passes and fixed-point steps a pixel, so the Pallas pass cap of 50
+    (the port's is 512) does not bind."""
+    import jax.numpy as jnp
+
+    from siriltpu.ops.pallas.reject_stack import reject_stack_pallas
+
+    vals = make_vals(F, 256)
+    lo, hi = SIGS[rejection]
+    want = reject_stack_pallas(jnp.asarray(vals), rejection, lo, hi, tile=256,
+                               interpret=True, with_counters=True)
+    got = rs.reject_stack(frames_from_numpy(vals, "cpu"), rejection, lo, hi,
+                          with_counters=True)
+    for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
+        np.testing.assert_array_equal(_ints(g), np.asarray(w).astype(np.int32),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("F", [12, 25, 64])
+def test_winsorized_window_matches_pallas_raw(F):
+    """The plain winsorized window form against the raw Pallas winsorized
+    body, degenerate flags included (before any fix-up). Fewer than 50
+    passes and steps a pixel, as above."""
+    import jax.numpy as jnp
+
+    from siriltpu.ops.pallas.reject_stack import _reject_stack_raw
+
+    vals = make_vals(F, 256)
+    want = _reject_stack_raw(jnp.asarray(vals), "winsorized", 2.5, 2.5,
+                             tile=256, interpret=True)
+    got = rs.reject_plain(frames_from_numpy(vals, "cpu"), "winsorized", 2.5, 2.5)
+    for name, g, w in zip(("mean", "degen", "rejl", "rejh"), got, want):
+        np.testing.assert_array_equal(_ints(g), np.asarray(w).astype(np.int32),
+                                      err_msg=name)
+    assert int(got[1].sum()) > 0, "the case must exercise degenerate pixels"
+
+
+@pytest.mark.parametrize("rejection", ["sigma", "winsorized"])
+@pytest.mark.parametrize("F", [1, 2, 3, 4])
+def test_small_f_is_all_degenerate_then_exact(rejection, F):
+    """For F <= 4 every pixel hits the reference's mid-scan break, so the
+    window kernels flag all of them and the exact re-run decides each
+    one: the dispatcher still equals reject_and_mean."""
+    vals = frames_from_numpy(
+        np.random.default_rng(F).integers(0, 65536, (F, 64)).astype(np.uint16),
+        "cpu")
+    _, degen, _, _ = rs.reject_plain(vals, rejection, 2.0, 2.0)
+    assert bool(degen.all())
+    got = rs.reject_stack(vals, rejection, 2.0, 2.0, with_counters=True)
+    want = trej.reject_and_mean(vals, rejection, (2.0, 2.0))
+    for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
+        np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=name)
 
 
 def test_more_than_degen_k_degenerate_pixels():
@@ -76,12 +140,33 @@ def test_more_than_degen_k_degenerate_pixels():
     from siriltpu.ops.rejection import reject_and_mean
 
     vals = make_vals(25, 1024, seed=3, degen_every=3)
-    _, degen, _, _ = rs.reject_sigma_plain(frames_from_numpy(vals, "cpu"),
-                                           2.5, 2.5)
+    _, degen, _, _ = rs.reject_plain(frames_from_numpy(vals, "cpu"), "sigma",
+                                     2.5, 2.5)
     assert int(degen.sum()) > DEGEN_K
     want = reject_and_mean(jnp.asarray(vals), "sigma", (2.5, 2.5))
-    got = rs.reject_stack(frames_from_numpy(vals, "cpu"), 2.5, 2.5,
+    got = rs.reject_stack(frames_from_numpy(vals, "cpu"), "sigma", 2.5, 2.5,
                           with_counters=True)
+    for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
+        np.testing.assert_array_equal(_ints(g), np.asarray(w).astype(np.int32),
+                                      err_msg=name)
+
+
+def test_more_than_degen_k_degenerate_pixels_winsorized():
+    """The same for winsorized: every one of more than DEGEN_K degenerate
+    pixels is re-run through the masked reject_winsorized, and the result
+    is JAX reject_and_mean's."""
+    import jax.numpy as jnp
+
+    from siriltpu.ops.pallas.reject_stack import DEGEN_K
+    from siriltpu.ops.rejection import reject_and_mean
+
+    vals = make_vals(25, 512, seed=3, degen_every=3)
+    _, degen, _, _ = rs.reject_plain(frames_from_numpy(vals, "cpu"),
+                                     "winsorized", 2.5, 2.5)
+    assert int(degen.sum()) > DEGEN_K
+    want = reject_and_mean(jnp.asarray(vals), "winsorized", (2.5, 2.5))
+    got = rs.reject_stack(frames_from_numpy(vals, "cpu"), "winsorized", 2.5,
+                          2.5, with_counters=True)
     for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
         np.testing.assert_array_equal(_ints(g), np.asarray(w).astype(np.int32),
                                       err_msg=name)
@@ -89,17 +174,26 @@ def test_more_than_degen_k_degenerate_pixels():
 
 def test_wrapper_rejects_bad_input():
     with pytest.raises(TypeError):
-        rs.reject_stack(torch.zeros((5, 8), dtype=torch.int32), 3.0, 3.0)
+        rs.reject_stack(torch.zeros((5, 8), dtype=torch.int32), "sigma", 3.0, 3.0)
     with pytest.raises(ValueError):
-        rs.reject_stack(torch.zeros((5, 8, 2), dtype=torch.uint16), 3.0, 3.0)
+        rs.reject_stack(torch.zeros((5, 8, 2), dtype=torch.uint16), "sigma",
+                        3.0, 3.0)
     with pytest.raises(ValueError):
-        rs.reject_stack(torch.zeros((0, 8), dtype=torch.uint16), 3.0, 3.0)
+        rs.reject_stack(torch.zeros((0, 8), dtype=torch.uint16), "sigma", 3.0, 3.0)
     with pytest.raises(ValueError):
-        rs.reject_sigma_cuda(torch.zeros((5, 8), dtype=torch.uint16), 3.0, 3.0)
+        rs.reject_stack(torch.zeros((5, 8), dtype=torch.uint16), "linearfit",
+                        3.0, 3.0)
+    with pytest.raises(ValueError):
+        rs.reject_cuda(torch.zeros((5, 8), dtype=torch.uint16), "sigma", 3.0, 3.0)
     assert rs.pick_tile(100) == 128
     assert rs.pick_tile(1000) == 64
-    with pytest.raises(ValueError):
-        rs.pick_tile(4000)
+    assert rs.pick_tile(1000, "winsorized") == 32
+    # past the shared-memory bound the kernels run on a device-memory
+    # scratch copy: no F is refused
+    assert rs.pick_tile(3632) == 32
+    assert rs.pick_tile(4000) is None
+    assert rs.pick_tile(1816, "winsorized") == 32
+    assert rs.pick_tile(2000, "winsorized") is None
 
 
 def test_port_imports_without_jax_or_siriltpu():
@@ -112,7 +206,9 @@ def test_port_imports_without_jax_or_siriltpu():
         "    importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'siriltpu')]\n"
         "assert not bad, bad\n"
-        "assert 'siriltpu_torch.pipelines.register_stack' in sys.modules\n")
+        "for m in ('pipelines.register_stack', 'stacking.api', 'ops.stats',\n"
+        "          'ops.stack', 'ops.shift', 'core.frame'):\n"
+        "    assert 'siriltpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=PKG_ROOT)
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
@@ -124,28 +220,53 @@ def test_port_imports_without_jax_or_siriltpu():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the sigma kernel runs only on the card")
+        pytest.skip("needs a CUDA device: the rejection kernels run only on the card")
     return torch.device("cuda")
 
 
+#: (rejection, F) cases on the card: every kernel at F in {2, ..., 1000},
+#: and past the shared-memory bound (the device-memory scratch path)
+CUDA_CASES = ([(r, f) for r in KERNELS
+               for f in (2, 3, 5, 12, 25, 64, 100, 256, 1000)]
+              + [("sigma", 4000), ("winsorized", 2000)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("F", [5, 7, 12, 25, 64, 100, 256, 1000])
-def test_cuda_kernel_matches_plain(cuda_device, F):
-    vals = frames_from_numpy(make_vals(F, 8192 + 77), cuda_device)
-    got = rs.reject_sigma_cuda(vals, 2.5, 2.5)
+@pytest.mark.parametrize("rejection,F", CUDA_CASES)
+def test_cuda_kernel_matches_plain(cuda_device, monkeypatch, rejection, F):
+    p = 8192 + 77 if F <= 1000 else 1024 + 77
+    vals = frames_from_numpy(make_vals(F, p) if F >= 4 else
+                             np.random.default_rng(F).integers(
+                                 0, 65536, (F, p)).astype(np.uint16), cuda_device)
+    lo, hi = SIGS[rejection]
+    scratch = rs.pick_tile(F, rejection) is None
+    assert scratch == (F > 1000)
+    if scratch:
+        # 256 pixels a launch: the scratch path runs in five launches
+        monkeypatch.setattr(rs, "SCRATCH_BYTES",
+                            2 * rs._SLABS.get(rejection, 1) * F * 256)
+    before = rs.launches[rejection]
+    got = rs.reject_cuda(vals, rejection, lo, hi)
     torch.cuda.synchronize()
-    want = rs.reject_sigma_plain(vals, 2.5, 2.5)
+    assert rs.launches[rejection] == before + (5 if scratch else 1)
+    want = rs.reject_plain(vals, rejection, lo, hi)
     for name, g, w in zip(("mean", "degen", "rejl", "rejh"), got, want):
         np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=name)
 
 
 @pytest.mark.cuda
-def test_cuda_wrapper_matches_reject_and_mean(cuda_device):
+@pytest.mark.parametrize("rejection", KERNELS)
+def test_cuda_wrapper_matches_reject_and_mean(cuda_device, rejection):
     vals = frames_from_numpy(make_vals(25, 4096, degen_every=3), cuda_device)
-    before = rs.launches
-    got = rs.reject_stack(vals, 2.5, 2.5, with_counters=True)
+    lo, hi = SIGS[rejection]
+    before = rs.launches[rejection]
+    got = rs.reject_stack(vals, rejection, lo, hi, with_counters=True)
     torch.cuda.synchronize()
-    assert rs.launches == before + 1
-    want = trej.reject_and_mean(vals, "sigma", (2.5, 2.5))
+    assert rs.launches[rejection] == before + 1
+    if rejection == "median":
+        np.testing.assert_array_equal(_ints(got[0]),
+                                      _ints(trej.masked_median(vals)))
+        return
+    want = trej.reject_and_mean(vals, rejection, (lo, hi))
     for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
         np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=name)

@@ -97,7 +97,8 @@ def test_sigma_goldens_exact(route):
     for (n, sig0, sig1), items in groups.items():
         vals = np.stack([it[0] for it in items], axis=1)  # (n, records)
         if route == "reject_stack":
-            mean, rl, rh = reject_stack(t(vals), sig0, sig1, with_counters=True)
+            mean, rl, rh = reject_stack(t(vals), "sigma", sig0, sig1,
+                                        with_counters=True)
         else:
             mean, rl, rh = trej.reject_and_mean(
                 torch.from_numpy(vals.astype(np.float32)), route, (sig0, sig1))
@@ -113,5 +114,84 @@ def test_sigma_goldens_exact(route):
 @pytest.mark.parametrize("rejection", ["none", "percentile", "sigmedian",
                                        "winsorized", "linearfit"])
 def test_unported_rejections_raise(rejection):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trej.reject_and_mean(t(make_vals(8, p=16)), rejection)
+    """linearfit is not ported and raises, naming its ROADMAP item; the
+    other rejections, once unported, now equal JAX reject_and_mean."""
+    vals = make_vals(8, p=16)
+    if rejection == "linearfit":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            trej.reject_and_mean(t(vals), rejection)
+        return
+    want = jrej.reject_and_mean(jnp.asarray(vals), rejection, (2.0, 2.0))
+    got = trej.reject_and_mean(t(vals), rejection, (2.0, 2.0))
+    for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
+        np.testing.assert_array_equal(
+            g.to(torch.int32).numpy(), np.asarray(w).astype(np.int32),
+            err_msg=name)
+
+
+#: (siglow, sighigh) per rejection; percentile takes (plow, phigh)
+SIGS = {"none": (3.0, 3.0), "percentile": (0.2, 0.1),
+        "sigmedian": (2.5, 2.5), "winsorized": (2.5, 2.0)}
+
+
+@pytest.mark.parametrize("F", [2, 3, 4, 5, 12, 25, 64])
+@pytest.mark.parametrize("rejection", ["none", "percentile", "sigmedian",
+                                       "winsorized"])
+def test_reject_and_mean_fused_rejections_match_jax(rejection, F):
+    vals = make_vals(F, p=256, seed=4)
+    want = jrej.reject_and_mean(jnp.asarray(vals), rejection, SIGS[rejection])
+    got = trej.reject_and_mean(t(vals), rejection, SIGS[rejection])
+    for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
+        np.testing.assert_array_equal(
+            g.to(torch.int32).numpy(), np.asarray(w).astype(np.int32),
+            err_msg=name)
+
+
+def test_winsorized_many_frames_matches_jax():
+    vals = make_vals(1000, p=24, seed=5)
+    want = jrej.reject_and_mean(jnp.asarray(vals), "winsorized", (3.0, 3.0))
+    got = trej.reject_and_mean(t(vals), "winsorized", (3.0, 3.0))
+    for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
+        np.testing.assert_array_equal(
+            g.to(torch.int32).numpy(), np.asarray(w).astype(np.int32),
+            err_msg=name)
+
+
+@pytest.mark.parametrize("F", [2, 3, 4, 5, 12, 25, 64])
+def test_masked_median_matches_jax(F):
+    vals = make_vals(F, p=256, seed=6)
+    want = jrej.masked_median(jnp.asarray(vals, jnp.float32))
+    got = trej.masked_median(t(vals))
+    assert got.dtype == torch.uint16
+    np.testing.assert_array_equal(got.to(torch.int32).numpy(),
+                                  np.asarray(want).astype(np.int32))
+
+
+@pytest.mark.parametrize("rejection", ["none", "percentile", "sigmedian",
+                                       "winsorized"])
+def test_fused_rejection_goldens_exact(rejection):
+    """Every record of the compiled C for this rejection, mean and both
+    counters, through reject_and_mean and (but none, which has no kernel)
+    the dispatcher's CPU route."""
+    groups = {}
+    for kind, _, n, sig0, sig1, vec, mean, rej0, rej1 in _read_rejection():
+        if REJ_NAMES[kind] == rejection:
+            groups.setdefault((n, sig0, sig1), []).append((vec, mean, rej0, rej1))
+    assert groups
+    routes = ["reject_and_mean"] + ([] if rejection == "none" else ["reject_stack"])
+    for (n, sig0, sig1), items in groups.items():
+        vals = np.stack([it[0] for it in items], axis=1)  # (n, records)
+        for route in routes:
+            if route == "reject_stack":
+                mean, rl, rh = reject_stack(t(vals), rejection, sig0, sig1,
+                                            with_counters=True)
+            else:
+                mean, rl, rh = trej.reject_and_mean(t(vals), rejection,
+                                                    (sig0, sig1))
+            ctx = f"{route} n={n} sig=({sig0}, {sig1})"
+            np.testing.assert_array_equal(mean.to(torch.int32).numpy(),
+                                          [it[1] for it in items], err_msg=ctx)
+            np.testing.assert_array_equal(rl.numpy(), [it[2] for it in items],
+                                          err_msg=ctx)
+            np.testing.assert_array_equal(rh.numpy(), [it[3] for it in items],
+                                          err_msg=ctx)
