@@ -9,15 +9,20 @@ exits non-zero without printing a result:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile the CUDA library from siril-0.9_tpu/siriltpu_torch/csrc
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together), print what ptxas says of
+   each kernel's registers and spills, and the warps the winsorized
+   kernel keeps resident per SM at F = 1000 (at least 16) and the sigma
+   kernel at F = 100;
 3. kernels vs plain: each of the five CUDA rejection kernels (sigma,
    median, percentile, sigmedian, winsorized) against its plain PyTorch
    version on the card, bit for bit, for F in {3, 5, 12, 25, 64, 100, 256,
-   1000} (sigma also 7) and P = 65536 (outliers at 0 and 60000, real 65535
-   values, degenerate geomspace columns), and past the shared-memory bound
-   on the device-memory scratch path (sigma at F = 4000, winsorized at
-   F = 2000); then the dispatcher with its degenerate fix-up against
-   reject_and_mean (masked_median for median);
+   1000} (sigma also 7; sigma and winsorized also at the borders of their
+   designs, F in {63, 65, 127, 128, 129, 511, 512, 1024, 1025}) and
+   P = 65536 (outliers at 0 and 60000, real 65535 values, degenerate
+   geomspace columns), and on the device-memory scratch path (sigma at
+   F = 4000, winsorized at F = 2000); then the dispatcher against
+   reject_and_mean (masked_median for median), under
+   torch.cuda.set_sync_debug_mode("error"), so a host sync fails the run;
 4. register + sigma stack: register_and_stack on a 100 x 4096 x 4096
    uint16 sequence made on the card (shifts in [-20, 20]): exact shifts,
    the kernel's launch count, and the stacked image and counters bit-equal
@@ -29,7 +34,9 @@ exits non-zero without printing a result:
    (shifts in [-20, 20]): the median stack, then the mean stack with sigma
    (3, 3), percentile (0.2, 0.1) and sigmedian (3, 3), no normalization;
 7. config 3: stack_frames(mean, winsorized (3, 3), additive_scaling) on
-   1000 x 1 x 480 x 640 frames made on the card (shifts in [-20, 20]).
+   1000 x 1 x 480 x 640 frames made on the card (shifts in [-20, 20]),
+   with the block loop's time alone and what the exact re-run of the
+   degenerate pixels costs inside the kernel.
 
 Each stack of phases 6-7 runs once with every launch count set to 0: its
 kernel must have launched, and the image and per-channel counters must be
@@ -37,7 +44,10 @@ bit-equal to the same y-shifted, normalized, x-shifted (F, P) data, built
 here with other code, put through the plain version in 2^20-pixel chunks.
 A second, warm run gives its frames/s. Each kernel's ms and its plain
 version's ms are taken at its configuration's full shape (CUDA events,
-median of 3 warm runs).
+median of 3 warm runs), beside its device-memory bound, the time of
+torch.sort(dim=0) at that shape (a yardstick for the sort alone) and, for
+the median, of torch.quantile(midpoint), the one PyTorch call that
+computes the same function. The port calls neither.
 
 The line before the last holds one JSON object describing each kernel;
 the last line is {"ok": true, "device": {...}}.
@@ -58,12 +68,22 @@ DEVICE = "cuda"
 SIZE, NFRAMES, SIG = 4096, 100, 3.0
 CASE_P = 65536
 CASE_FS = (3, 5, 12, 25, 64, 100, 256, 1000)
-#: past the shared-memory bound: the device-memory scratch path
+#: sigma and winsorized also at the borders of their designs: sigma's
+#: register sort of 32, 64 or 128 wires up to F = 128, winsorized's
+#: 32-slot chunks and mask words
+BORDER_FS = (63, 65, 127, 128, 129, 511, 512, 1024, 1025)
+#: the device-memory scratch path: sigma past its shared-memory bound, and
+#: winsorized at F = 2000 with the shared memory a block may use set to 0
+#: (its bound is F ~ 97k)
 SCRATCH_CASES = (("sigma", 4000), ("winsorized", 2000))
 CONFIG2 = (50, 2048, 2048)   # frames, height, width
 CONFIG3 = (1000, 480, 640)
 CHUNK = 1 << 20
 REPS = 3
+#: device-memory rate of one H100 SXM (NVIDIA's data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+#: least warps the winsorized kernel keeps resident per SM at F = 1000
+MIN_WARPS_F1000 = 16
 PALLAS = "siril-0.9_tpu/siriltpu/ops/pallas/reject_stack.py"
 #: first line of each kernel's branch of _make_kernel
 REPLACES = {"sigma": 797, "median": 255, "percentile": 271, "sigmedian": 297,
@@ -173,14 +193,26 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def hbm_bound(f: int, p: int):
+    """The bytes a rejection kernel must move at (F, P), each input value
+    read once and each output (a uint16 mean and three int32) written once,
+    and their time at the card's device-memory rate in ms."""
+    nbytes = 2 * f * p + 14 * p
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
 class Record:
     """Per kernel: the launches of the main paths, the largest difference
-    from its plain version, and its and the plain version's ms."""
+    from its plain version, its and the plain version's ms, its bound and
+    the ms of one PyTorch call that computes the same function (None where
+    there is none)."""
 
     def __init__(self, names):
         self.launches = dict.fromkeys(names, 0)
         self.err = dict.fromkeys(names, 0)
         self.ms = {}
+        self.bound = {}
+        self.library = dict.fromkeys(names)
 
     def check(self, name: str, errs, what: str):
         self.err[name] = max(self.err[name], *errs)
@@ -195,25 +227,70 @@ class Record:
             fail(f"{paths} did not launch the {kernel} kernel")
 
 
+def yardsticks(rec, card, kernel: str, flat):
+    """The kernel's device-memory bound at the full shape of its path, the
+    time of torch.sort(vals, dim=0) at that shape (a yardstick for the sort
+    phase only), and for the median the time of the one PyTorch call that
+    computes the same function. The port calls neither."""
+    import torch
+    from siriltpu_torch.utils.interop import u16_to_i32
+
+    f, p = flat.shape
+    nbytes, bound = hbm_bound(f, p)
+    rec.bound[kernel] = bound
+    try:
+        sort_ms, _ = cuda_ms(lambda: torch.sort(flat, dim=0))
+        sorted_as = "uint16"
+    except (RuntimeError, NotImplementedError):
+        wide = u16_to_i32(flat)
+        sort_ms, _ = cuda_ms(lambda: torch.sort(wide, dim=0))
+        sorted_as = "int32 (no uint16 sort on this card)"
+        del wide
+    torch.cuda.empty_cache()
+    print(f"yardstick [{card}] {kernel} at {f}x{p}: bound {bound:.4f} ms "
+          f"({nbytes} bytes at {HBM_BYTES_PER_S:.3g} B/s); torch.sort(dim=0) "
+          f"of the {sorted_as} values {sort_ms:.3f} ms", flush=True)
+    if kernel == "median":
+        x = u16_to_i32(flat).to(torch.float32)
+        lib_ms, _ = cuda_ms(lambda: torch.quantile(x, 0.5, dim=0,
+                                                   interpolation="midpoint"))
+        del x
+        torch.cuda.empty_cache()
+        rec.library[kernel] = lib_ms
+        print(f"yardstick [{card}] median: torch.quantile(midpoint) of the "
+              f"float32 values {lib_ms:.3f} ms", flush=True)
+
+
 def phase3(rs, rec, dev):
     import torch
     from siriltpu_torch.ops.rejection import masked_median, reject_and_mean
     from siriltpu_torch.utils.interop import frames_from_numpy
 
+    windowed = ("sigma", "winsorized")
     cases = [(r, f, CASE_P) for r in rs.launches
-             for f in sorted(set(CASE_FS) | ({7} if r == "sigma" else set()))]
+             for f in sorted(set(CASE_FS) | ({7} if r == "sigma" else set())
+                             | (set(BORDER_FS) if r in windowed else set()))]
     cases += [(r, f, CASE_P) for r, f in SCRATCH_CASES]
+    smem_limit = rs.SMEM_LIMIT
     for rej, f, p in cases:
         sig = CASE_SIG.get(f, 3.0)
         lo, hi = (0.2, 0.1) if rej == "percentile" else (sig, sig)
         vals = frames_from_numpy(make_case(f, p, 3 if f == 25 else 97, seed=f), dev)
-        scratch = rs.pick_tile(f, rej) is None
+        if (rej, f) in SCRATCH_CASES:
+            rs.SMEM_LIMIT = 0
+        scratch = rs.launch_plan(rej, f, p).scratch
         got = rs.reject_cuda(vals, rej, lo, hi)
         torch.cuda.synchronize()
         want = rs.reject_plain(vals, rej, lo, hi)
         torch.cuda.synchronize()
         errs = [max_abs_diff(g, w) for g, w in zip(got, want)]
-        fin = rs.reject_stack(vals, rej, lo, hi, with_counters=True)
+        # the dispatcher makes no host sync: any would raise here
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fin = rs.reject_stack(vals, rej, lo, hi, with_counters=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            rs.SMEM_LIMIT = smem_limit
         torch.cuda.synchronize()
         ref = ((masked_median(vals),) if rej == "median"
                else reject_and_mean(vals, rej, (lo, hi)))
@@ -279,9 +356,7 @@ def phase4_5(rs, rec, dev, card):
     ms["quality"], _ = cuda_ms(lambda: quality_estimate_batch(sel_frames))
     ms["align"], aligned = cuda_ms(lambda: prs.align_frames_auto(frames, sx, sy))
     flat = aligned.reshape(NFRAMES, -1)
-    ms["kernel"], raw = cuda_ms(lambda: rs.reject_cuda(flat, "sigma", SIG, SIG))
-    # the fix-up writes in place, and writes the same values every run
-    ms["fixup"], _ = cuda_ms(lambda: rs.fix_degenerate(flat, "sigma", *raw, SIG, SIG))
+    ms["kernel"], _ = cuda_ms(lambda: rs.reject_cuda(flat, "sigma", SIG, SIG))
     # the kernel's plain version, and the whole stack stage's (with the
     # exact re-run of degenerate pixels), in 2^20-pixel chunks
     ms["plain_kernel"], _ = cuda_ms(chunked(
@@ -292,6 +367,7 @@ def phase4_5(rs, rec, dev, card):
           f"{fps:.3f} frames/s end to end (mean of {REPS} warm runs); "
           + " ".join(f"{k}_ms={v:.3f}" for k, v in ms.items()), flush=True)
     rec.ms["sigma"] = (ms["kernel"], ms["plain_kernel"])
+    yardsticks(rec, card, "sigma", flat)
 
 
 def reference_flat(frames, shifts, method: str, coeffs):
@@ -319,6 +395,29 @@ def reference_flat(frames, shifts, method: str, coeffs):
         x = round_to_word_f(u16_to_i32(vals).to(torch.float32) * scale - off)
         vals = i32_to_u16(x.to(torch.int32))
     return align_frames_gather(vals, sx, zero).reshape(f, -1)
+
+
+def exact_cost(rs, card, label, kernel, sig, flat, loop_s):
+    """What the degenerate pixels' exact re-run costs inside the kernel:
+    its time on ``flat`` less its time on a copy whose degenerate columns
+    are replaced by a column that is not degenerate; and that difference's
+    share of the block loop's ``loop_s``."""
+    import torch
+
+    degen = rs.reject_cuda(flat, kernel, *sig)[1].bool()
+    idx = torch.nonzero(degen).flatten()
+    good = int(torch.nonzero(~degen).flatten()[0])
+    clean = flat.clone()
+    clean.view(torch.int16)[:, idx] = flat.view(torch.int16)[:, good:good + 1]
+    left = int(rs.reject_cuda(clean, kernel, *sig)[1].sum())
+    with_ms, _ = cuda_ms(lambda: rs.reject_cuda(flat, kernel, *sig))
+    without_ms, _ = cuda_ms(lambda: rs.reject_cuda(clean, kernel, *sig))
+    cost = with_ms - without_ms
+    print(f"{label} fix-up of {idx.numel()} degenerate pixels, inside the "
+          f"{kernel} kernel: {cost:.3f} ms ({with_ms:.3f} ms with them, "
+          f"{without_ms:.3f} ms with their columns replaced, {left} left "
+          f"degenerate), {100 * cost / (1e3 * loop_s):.3f}% of the block loop "
+          f"[{card}]", flush=True)
 
 
 def stack_config(rs, rec, dev, card, label, frames, shifts, method, rejection,
@@ -377,12 +476,23 @@ def stack_config(rs, rec, dev, card, label, frames, shifts, method, rejection,
           f"max|diff|={max(errs)}; warm run {sec:.3f} s, {f / sec:.3f} frames/s"
           f"{norm} [{card}]", flush=True)
     rec.check(kernel, errs, f"{name} vs the plain version")
+    if coeffs is not None:
+        # the stack stage alone: the block loop with the coefficients given
+        t0 = time.perf_counter()
+        stack_frames(frames, coeffs=coeffs, **kw)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        print(f"{label} block loop (stack_frames with its coefficients given) "
+              f"{loop_s:.3f} s [{card}]", flush=True)
+        if ndeg:
+            exact_cost(rs, card, label, kernel, sig, flat, loop_s)
     if kernel not in rec.ms:
         k_ms, _ = cuda_ms(lambda: rs.reject_cuda(flat, kernel, *sig))
         p_ms, _ = cuda_ms(chunked(lambda v: rs.reject_plain(v, kernel, *sig), flat))
         rec.ms[kernel] = (k_ms, p_ms)
         print(f"timing [{card}] {kernel} kernel at {f}x{h * w}: {k_ms:.3f} ms, "
               f"plain version {p_ms:.3f} ms (median of {REPS} warm runs)", flush=True)
+        yardsticks(rec, card, kernel, flat)
 
 
 def main() -> int:
@@ -411,7 +521,17 @@ def main() -> int:
     for line in info["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"build: ptxas {line.strip()}")
+    spills = [line for line in info["log"].splitlines()
+              if "spill" in line and " 0 bytes spill stores" not in line]
+    if spills:
+        fail(f"ptxas reports spills: {spills}")
 
+    plans = {k: rs.launch_plan(k, f) for k, f in (("winsorized", 1000), ("sigma", 100))}
+    print(f"occupancy: resident warps per SM {({k: v.warps for k, v in plans.items()})} "
+          f"(winsorized at F = 1000 with {plans['winsorized'].tile} pixels a block, "
+          f"sigma at F = 100 with {plans['sigma'].tile})", flush=True)
+    if plans["winsorized"].warps < MIN_WARPS_F1000:
+        fail(f"winsorized keeps {plans['winsorized'].warps} warps per SM at F = 1000")
     rec = Record(rs.launches)
     # ---- 3. every kernel vs its plain version
     phase3(rs, rec, dev)
@@ -439,7 +559,9 @@ def main() -> int:
         "name": f"reject_{k}", "route": "cuda",
         "source": f"siril-0.9_tpu/siriltpu_torch/csrc/reject_{k}.cu",
         "replaces": f"{PALLAS}:{REPLACES[k]}", "launches": rec.launches[k],
-        "max_abs_err": rec.err[k], "ms": rec.ms[k][0], "plain_ms": rec.ms[k][1]}
+        "max_abs_err": rec.err[k], "ms": rec.ms[k][0], "plain_ms": rec.ms[k][1],
+        "bound_ms": rec.bound[k], "bound_by": "bytes", "bound": "hbm",
+        "library_ms": rec.library[k]}
         for k in rs.launches]}
     print(card)
     print(json.dumps(kernels))

@@ -1,6 +1,9 @@
 // What the five rejection-stack kernels share: the column view, the
-// per-column sort, the exact sd and mean, the sigma flag scan, the window
-// step of the windowed clips, and the launch.
+// per-column sorts, the exact sd and mean, the sigma flag scan, the window
+// step of the windowed clips, the reference's exact masked loop for the
+// pixels the window form cannot settle, and the launch with its plan (the
+// block, shared memory and scratch layout, reported to the wrapper by
+// reject_<name>_plan).
 //
 // Each kernel replaces one static branch of
 // siril-0.9_tpu/siriltpu/ops/pallas/reject_stack.py:_make_kernel, reached
@@ -9,23 +12,40 @@
 // outputs: a uint16 mean, an int32 degenerate flag and int32 low and high
 // rejection counts.
 //
-// One thread owns one pixel column. It copies the column's F values from
-// device memory once, sorts them, and runs its rejection on the sorted
-// column; neighbouring threads own neighbouring pixels, so every frame row
-// is read by coalesced 2-byte loads. Where the column lives:
-// - shared memory, at stride `tile` (the block's thread count), so the
-//   threads of a warp touch neighbouring words (no bank conflicts). A
-//   block of `tile` pixels holds kSlabs * F * tile * 2 bytes;
-// - a device-memory scratch laid out (F, P), when even the smallest tile
-//   does not fit in the 227 KB of shared memory a block may use. The same
-//   code then runs at stride P, so a warp still touches neighbouring
-//   pixels. No F is refused.
+// Who owns a pixel:
+// - median, percentile and sigmedian (reject_kernel below): one thread a
+//   pixel column. It copies the column's F values from device memory once,
+//   sorts them with a pruned bitonic network in shared memory and runs its
+//   rejection on the sorted column; neighbouring threads own neighbouring
+//   pixels, so every frame row is read by coalesced 2-byte loads. The
+//   column lives in shared memory at stride `tile` (F * tile * 2 bytes a
+//   block), or in a device-memory scratch laid out (F, P) when
+//   even tile 32 does not fit in the 227 KB a block may use;
+// - sigma (reject_sigma.cu): one thread a pixel as well, but for F <= 128
+//   the column is sorted in registers by a network unrolled at compile
+//   time, and written to shared memory once for the clip passes;
+// - winsorized (reject_winsorized.cu): a warp a pixel (a team of 32
+//   lanes), which sorts the column together in shared memory and splits
+//   every fixed-point step and clip scan across its lanes.
+//
+// Degenerate pixels: a pass whose scan would hit the reference's mid-scan
+// break (N - r <= 4, stacking.c:1684-1688) cannot be told by the window
+// form, which freezes the pixel (Window::step). Sigma and winsorized then
+// settle it inside the kernel: the warp that owns it (for sigma, the warp
+// of its thread, one degenerate lane at a time) re-runs the reference's
+// masked loop, exact_masked below, on the sorted column it already holds.
+// That is rejection.py:_stale_pass with its positional stale buffer: two
+// bits a frame (the validity mask by slot and the rejected[] buffer by
+// rank, double-buffered), 3 * ceil(F / 32) words a warp, kept beside the
+// columns in shared memory (or in the scratch). The degen output stays 1
+// for such pixels; their mean and counters are the exact ones.
 //
 // Bit-exactness rules (each changes clip decisions if broken):
-// - the sd is three exact integer sums of an 8-bit split of deviations
-//   from an anchor element, combined in float in the order of the JAX
-//   code; the library is built without fast math and with -fmad=false,
-//   so division and sqrt are IEEE and no product is fused into an add;
+// - the sd is exact integer sums of an 8-bit split of deviations from an
+//   anchor element, combined in float in the order of the JAX code; the
+//   library is built without fast math and with -fmad=false, so division
+//   and sqrt are IEEE and no product is fused into an add. A team adds its
+//   integer sums in any order: they are exact;
 // - sums are int32 while 2 * F * 65535 + F < 2^31 (F < 16384) and int64
 //   past that;
 // - the median is 0.5f * ((float)v1 + (float)v2);
@@ -73,7 +93,7 @@ __device__ __forceinline__ void cmp_swap(const C& col, int i, int l) {
 // maximum value, so every comparator that touches one is a no-op. The
 // control flow is data-independent: a warp never diverges while sorting.
 template <class C>
-__device__ void sort_column(const C& col, int f) {
+__device__ __forceinline__ void sort_column(const C& col, int f) {
   for (int k = 2; k < 2 * f; k <<= 1) {
     for (int base = 0; base < f; base += k) {
       for (int t = 0; t < k / 2; ++t) {
@@ -161,8 +181,8 @@ struct Window {
   // Apply one pass's flags; false once the pixel is done. A pass whose
   // scan would hit the reference's mid-scan break (N - r <= 4,
   // stacking.c:1684-1688) freezes the pixel and flags it degenerate: its
-  // stale-buffer removals are not window-shaped, so the wrapper re-runs
-  // it exactly.
+  // stale-buffer removals are not window-shaped, so its owner re-runs it
+  // through exact_masked.
   __device__ __forceinline__ bool step(Flags fl) {
     const int removed = fl.low + fl.high;
     if (hi - lo - r - removed <= 4) {
@@ -185,10 +205,311 @@ struct Outputs {
   int32_t* degen;
   int32_t* rejl;
   int32_t* rejh;
+
+  __device__ __forceinline__ void write(int64_t px, const Result& r) const {
+    mean[px] = static_cast<uint16_t>(r.mean);
+    degen[px] = r.degen;
+    rejl[px] = r.rejl;
+    rejh[px] = r.rejh;
+  }
 };
 
-// Body::run<Acc>(x, w, f, siglow, sighigh) -> Result, on the sorted column
-// x; w is the second slab (Body::kSlabs == 2) or x again.
+// ------------------------------------------------------------ warp teams
+//
+// Every function below is called by all 32 lanes of a warp with the same
+// arguments, and returns the same value to every lane.
+
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ int lane_id() { return static_cast<int>(threadIdx.x & 31u); }
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+template <typename Acc>
+__device__ __forceinline__ SdSums<Acc> warp_sums(SdSums<Acc> s) {
+  s.s1 = warp_sum(s.s1);
+  s.shh = warp_sum(s.shh);
+  s.shl = warp_sum(s.shl);
+  s.sll = warp_sum(s.sll);
+  return s;
+}
+
+__device__ __forceinline__ int32_t clamp_i(int32_t v, int32_t lo, int32_t hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// Position of the m-th (0-based) set bit of `word`, which has more than m.
+__device__ __forceinline__ int select_bit(uint32_t word, int m) {
+  int pos = 0;
+#pragma unroll
+  for (int width = 16; width > 0; width >>= 1) {
+    const int c = __popc(word & ((1u << width) - 1u));
+    if (m >= c) {
+      m -= c;
+      word >>= width;
+      pos += width;
+    }
+  }
+  return pos;
+}
+
+// A pixel's surviving values as a team sees them: the window [lo, hi) of
+// the sorted column...
+struct WindowSet {
+  int lo, hi;
+  __device__ __forceinline__ int kth(int k) const { return lo + k; }
+  template <class Fn>
+  __device__ __forceinline__ void for_each(Fn fn) const {
+    for (int i = lo + lane_id(); i < hi; i += 32) fn(i);
+  }
+};
+
+// ...or the slots whose bit is set in the validity mask valid[0, nw).
+struct MaskSet {
+  const uint32_t* valid;
+  int nw;
+  // slot of the k-th valid value: the words' popcounts, scanned across
+  // the lanes 32 words at a time
+  __device__ __forceinline__ int kth(int k) const {
+    const int lane = lane_id();
+    int base = 0;
+    for (int w0 = 0; w0 < nw; w0 += 32) {
+      const int w = w0 + lane;
+      const uint32_t word = w < nw ? valid[w] : 0u;
+      const int c = __popc(word);
+      int incl = c;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += t;
+      }
+      const int total = __shfl_sync(kFull, incl, 31);
+      if (k < base + total) {
+        const int src = __ffs(__ballot_sync(kFull, base + incl > k)) - 1;
+        const int slot = w * 32 + select_bit(word, k - (base + incl - c));
+        return __shfl_sync(kFull, slot, src);
+      }
+      base += total;
+    }
+    return 0;  // k < the number of valid slots: not reached
+  }
+  template <class Fn>
+  __device__ __forceinline__ void for_each(Fn fn) const {
+    const int lane = lane_id();
+    for (int j = 0; j < nw; ++j)
+      if ((valid[j] >> lane) & 1u) fn(32 * j + lane);
+  }
+};
+
+// Exact sums of v(i) - a over the set, added across the team.
+template <typename Acc, class Set, class V>
+__device__ __forceinline__ float team_sd(const Set& s, int n, int32_t a, V v) {
+  SdSums<Acc> sums;
+  s.for_each([&](int i) { sums.add(v(i) - a); });
+  return warp_sums(sums).sd(n);
+}
+
+// round_to_WORD of the exact mean of the set's values.
+template <typename Acc, class C, class Set>
+__device__ __forceinline__ int32_t team_mean(const C& x, const Set& s, int n) {
+  Acc sum = 0;
+  s.for_each([&](int i) { sum += x[i]; });
+  sum = warp_sum(sum);
+  const Acc nn = n;
+  Acc m = nn > 0 ? (2 * sum + nn) / (2 * nn) : 0;
+  m = m < 0 ? 0 : (m > 65535 ? 65535 : m);
+  return static_cast<int32_t>(m);
+}
+
+// The winsorization fixed point of one outer pass, on the set's values of
+// the sorted column x, in the domain shifted by `anchor` (stacking.c:
+// 1710-1740). It starts from the median and the sd of the set (the sd
+// anchored on its element n/2), then clamps to round_shift(med -+
+// 1.5f*sig) and measures the median and 1.134f * sd of the clamped values
+// (again anchored on element n/2) until sig <= 0 or |sig_new - sig| /
+// max(sig, 1e-30f) <= 0.0005f, at most kMaxIters steps. The working copy
+// is never stored: clamps compose (clamp(clamp(v, A, B), r0, r1) ==
+// clamp(v, clamp(A, r0, r1), clamp(B, r0, r1))), so after any number of
+// steps it is clamp(x, A, B) with two bounds.
+template <typename Acc, class C, class Set>
+__device__ __forceinline__ void winsor_converge(const C& x, const Set& s, int n, int32_t anchor, float& med,
+                                float& sig) {
+  const int k1 = s.kth((n - 1) / 2), k2 = s.kth(n / 2);
+  const int32_t x1 = x[k1], x2 = x[k2];
+  const float lo_clip = -static_cast<float>(anchor);
+  const float hi_clip = 65535.0f - static_cast<float>(anchor);
+  // round_shift of the JAX code, back in the original domain
+  auto bound = [&](float t) -> int32_t {
+    float r = floorf(t + 0.5f);
+    if (t <= lo_clip) r = lo_clip;
+    if (t > hi_clip) r = hi_clip;
+    return static_cast<int32_t>(r) + anchor;
+  };
+  med = median_of(x1 - anchor, x2 - anchor);
+  sig = team_sd<Acc>(s, n, x2, [&](int i) { return static_cast<int32_t>(x[i]); });
+  int32_t A = 0, B = 65535;
+  for (int it = 0; it < kMaxIters; ++it) {
+    const int32_t r0 = bound(med - 1.5f * sig);
+    const int32_t r1 = bound(med + 1.5f * sig);
+    A = clamp_i(A, r0, r1);
+    B = clamp_i(B, r0, r1);
+    const int32_t w1 = clamp_i(x1, A, B), w2 = clamp_i(x2, A, B);
+    const float med_new = median_of(w1 - anchor, w2 - anchor);
+    const float sig_new =
+        1.134f * team_sd<Acc>(s, n, w2, [&](int i) { return clamp_i(x[i], A, B); });
+    const bool conv = sig <= 0.0f || fabsf(sig_new - sig) / fmaxf(sig, 1e-30f) <= 0.0005f;
+    med = med_new;
+    sig = sig_new;
+    if (conv) break;
+  }
+}
+
+// Validity mask and the two rank buffers of one warp's exact pass, each
+// ceil(F / 32) words.
+struct Masks {
+  uint32_t* valid;
+  uint32_t* cur;
+  uint32_t* nxt;
+};
+
+__device__ __forceinline__ Masks masks_at(uint32_t* base, int nw) {
+  return {base, base + nw, base + 2 * nw};
+}
+
+// The statistics of one masked pass: (median, sigma) in the domain
+// shifted by `shift`.
+// Sigma (rejection.py:reject_sigma): the median and the sd of the valid
+// values, the sd anchored on the valid element n/2.
+struct SigmaStats {
+  static constexpr int32_t shift = 0;
+  template <typename Acc, class C>
+  __device__ __forceinline__ void run(const C& x, const MaskSet& s, int n, float& med,
+                                      float& sig) const {
+    const int32_t v1 = x[s.kth((n - 1) / 2)], v2 = x[s.kth(n / 2)];
+    med = median_of(v1, v2);
+    sig = team_sd<Acc>(s, n, v2, [&](int i) { return static_cast<int32_t>(x[i]); });
+  }
+};
+
+// Winsorized (rejection.py:reject_winsorized): the fixed point on the
+// valid values, shifted by x[F/2] of the full sorted column.
+struct WinsorStats {
+  int32_t shift;
+  template <typename Acc, class C>
+  __device__ __forceinline__ void run(const C& x, const MaskSet& s, int n, float& med,
+                                      float& sig) const {
+    winsor_converge<Acc>(x, s, n, shift, med, sig);
+  }
+};
+
+// The reference's masked loop for one pixel, run by a whole warp on the
+// sorted column x of F values (rejection.py:reject_sigma and
+// reject_winsorized with _stale_pass, stacking.c:1674-1748): every pass
+// flags values by the sigma predicate, walks the valid values in sorted
+// order counting r cumulatively and stops flagging once N - r <= 4; the
+// removal then reads the positional buffer rejected[rank] for every rank,
+// so ranks past the break remove by the previous pass's stale entries,
+// uncounted. Starts from every slot valid and a zeroed buffer. The team
+// walks 32 slots at a time: slot 32j + lane, the mask word j, ballots for
+// the flag prefix counts and the break.
+template <typename Acc, class C, class Stats>
+__device__ __forceinline__ Result exact_masked(const C& x, int f, Masks m, float siglow, float sighigh,
+                               const Stats& stats) {
+  const int lane = lane_id();
+  const int nw = (f + 31) / 32;
+  const uint32_t lt = (1u << lane) - 1u, le = lt | (1u << lane);
+  for (int w = lane; w < nw; w += 32) {
+    const int left = f - 32 * w;
+    m.valid[w] = left >= 32 ? kFull : (1u << left) - 1u;
+    m.cur[w] = 0u;
+  }
+  __syncwarp();
+  const MaskSet set{m.valid, nw};
+  int n = f, r = 0, rl = 0, rh = 0;
+  for (int it = 0; it < kMaxIters; ++it) {
+    float med, sig;
+    stats.template run<Acc>(x, set, n, med, sig);
+    const float thr_low = siglow * sig, thr_high = sighigh * sig;
+    for (int w = lane; w < nw; w += 32) m.nxt[w] = 0u;
+    __syncwarp();
+    int base = 0, cbase = 0, removed = 0, counted = 0;
+    bool broke = false;
+    for (int j = 0; j < nw; ++j) {
+      const uint32_t vw = m.valid[j];
+      const bool vb = (vw >> lane) & 1u;
+      const float v = vb ? static_cast<float>(static_cast<int32_t>(x[32 * j + lane]) - stats.shift)
+                         : 0.0f;
+      const bool low = vb && med - v > thr_low;
+      const bool high = vb && v - med > thr_high;
+      const uint32_t fw = __ballot_sync(kFull, low || high);
+      // the scan breaks after the first valid slot where N - (r + c) <= 4,
+      // c counting the flags up to and including it
+      const int c = cbase + __popc(fw & le);
+      const uint32_t bw = __ballot_sync(kFull, vb && !broke && n - (r + c) <= 4);
+      const uint32_t upto = bw ? ((bw & (0u - bw)) << 1) - 1u : kFull;
+      const bool visited = vb && !broke && ((upto >> lane) & 1u);
+      const int rank = base + __popc(vw & lt);
+      const bool entry =
+          visited ? (low || high) : (vb && ((m.cur[rank >> 5] >> (rank & 31)) & 1u));
+      const uint32_t vis = __ballot_sync(kFull, visited);
+      rl += __popc(__ballot_sync(kFull, low) & vis);
+      rh += __popc(__ballot_sync(kFull, high) & vis);
+      counted += __popc(fw & vis);
+      const bool remove = vb && entry;
+      const uint32_t rw = __ballot_sync(kFull, remove);
+      // the entries of this word's valid slots, at their ranks
+      const uint32_t comp = __reduce_or_sync(kFull, remove ? 1u << __popc(vw & lt) : 0u);
+      __syncwarp();
+      if (lane == 0) {
+        m.valid[j] = vw & ~rw;
+        const int sh = base & 31;
+        m.nxt[base >> 5] |= comp << sh;
+        if (sh != 0 && __popc(vw) > 32 - sh) m.nxt[(base >> 5) + 1] |= comp >> (32 - sh);
+      }
+      __syncwarp();
+      removed += __popc(rw);
+      cbase += __popc(fw);
+      base += __popc(vw);
+      broke = broke || bw != 0u;
+    }
+    n -= removed;
+    r += counted;
+    uint32_t* t = m.cur;
+    m.cur = m.nxt;
+    m.nxt = t;
+    if (removed == 0 || n <= 3) break;
+  }
+  return {team_mean<Acc>(x, set, n), 1, rl, rh};
+}
+
+// ----------------------------------------------------------- launching
+
+using KernelFn = void (*)(const uint16_t*, int64_t, uint16_t*, Outputs, int, int64_t, float,
+                          float);
+
+// How a kernel runs at F frames over p pixels: its entry, its block
+// (threads and the pixels they own), its dynamic shared memory a block and
+// its device-memory scratch a launch, in bytes (0 off the scratch path);
+// kernel == nullptr for a tile the kernel does not take. Each kernel's plan
+// function, Plan(f, tile, scratch, p), is the one place its layout is
+// written down: the launch and the plan query both read it.
+struct Plan {
+  KernelFn kernel;
+  int threads, pixels;
+  int64_t smem, scratch;
+};
+
+// Pixels a block of the thread-a-pixel kernels, largest first (0 ends).
+constexpr int kThreadTiles[] = {128, 64, 32, 0};
+
+// A thread a pixel: Body::run<Acc>(x, f, siglow, sighigh) -> Result, on
+// the sorted column x, in shared memory at stride `tile` or in the scratch
+// laid out (F, P).
 template <class Body, bool kScratch, typename Acc>
 __global__ void reject_kernel(const uint16_t* __restrict__ vals, int64_t ld,
                               uint16_t* __restrict__ scratch, Outputs out, int f, int64_t p,
@@ -197,72 +518,121 @@ __global__ void reject_kernel(const uint16_t* __restrict__ vals, int64_t ld,
   using S = std::conditional_t<kScratch, int64_t, int>;
   const int64_t px = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (px >= p) return;
-  Column<S> x, w;
+  Column<S> x;
   if constexpr (kScratch) {
     x = {scratch + px, p};
-    w = {scratch + (Body::kSlabs - 1) * static_cast<int64_t>(f) * p + px, p};
   } else {
-    const int tp = blockDim.x;
-    x = {slab + threadIdx.x, tp};
-    w = {slab + (Body::kSlabs - 1) * f * tp + threadIdx.x, tp};
+    x = {slab + threadIdx.x, static_cast<int>(blockDim.x)};
   }
   // F * P reaches 1.7e9 at 100 x 4096^2: offsets are 64-bit.
   for (int i = 0; i < f; ++i) x[i] = vals[static_cast<int64_t>(i) * ld + px];
   sort_column(x, f);
-  const Result r = Body::template run<Acc>(x, w, f, siglow, sighigh);
-  out.mean[px] = static_cast<uint16_t>(r.mean);
-  out.degen[px] = r.degen;
-  out.rejl[px] = r.rejl;
-  out.rejh[px] = r.rejh;
+  out.write(px, Body::template run<Acc>(x, f, siglow, sighigh));
 }
 
-// Launch Body over p pixels on `stream`. vals is (F, p) with row stride ld
-// (elements); the outputs are (p,). With scratch == nullptr the columns
-// live in shared memory, `tile` pixels a block, kSlabs * F * tile * 2
-// bytes at most 227 KB; otherwise in `scratch`, kSlabs * F * p uint16.
-// Returns a cudaError_t; the launch is asynchronous.
+// tile pixels a block (32, 64 or 128), F * tile * 2 bytes of shared
+// memory, or the scratch: the (F, p) columns.
 template <class Body>
-int launch(const void* vals, int64_t ld, void* scratch, void* mean, void* degen, void* rejl,
-           void* rejh, int64_t f, int64_t p, int64_t tile, float siglow, float sighigh,
-           void* stream) {
-  if (f < 1 || f > 0x7fffffff || p < 1 || ld < p) return cudaErrorInvalidValue;
-  if (tile != 32 && tile != 64 && tile != 128) return cudaErrorInvalidValue;
-  const int64_t blocks = (p + tile - 1) / tile;
+Plan thread_plan(int64_t f, int64_t tile, bool scratch, int64_t p) {
+  if (tile != 32 && tile != 64 && tile != 128) return {};
+  const int t = static_cast<int>(tile);
+  if (!scratch) return {reject_kernel<Body, false, int32_t>, t, t, f * tile * 2, 0};
+  if (f < kWideFrames) return {reject_kernel<Body, true, int32_t>, t, t, 0, f * p * 2};
+  return {reject_kernel<Body, true, int64_t>, t, t, 0, f * p * 2};
+}
+
+// Launch a plan over p pixels on `stream`. vals is (F, p) with row stride
+// ld (elements); the outputs are (p,); scratch is nullptr or scratch_bytes
+// of device memory, which must hold the plan's scratch. Returns a
+// cudaError_t; the launch is asynchronous.
+inline int launch_plan(const Plan& pl, const void* vals, int64_t ld, void* scratch,
+                       int64_t scratch_bytes, void* mean, void* degen, void* rejl, void* rejh,
+                       int64_t f, int64_t p, float siglow, float sighigh, void* stream) {
+  if (pl.kernel == nullptr || f < 1 || f > 0x7fffffff || p < 1 || ld < p ||
+      pl.smem > kMaxSmemBytes || (scratch != nullptr && pl.scratch > scratch_bytes))
+    return cudaErrorInvalidValue;
+  const int64_t blocks = (p + pl.pixels - 1) / pl.pixels;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      pl.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(pl.smem));
+  if (err != cudaSuccess) return err;
   const Outputs out{static_cast<uint16_t*>(mean), static_cast<int32_t*>(degen),
                     static_cast<int32_t*>(rejl), static_cast<int32_t*>(rejh)};
-  const auto* v = static_cast<const uint16_t*>(vals);
-  auto* s = static_cast<uint16_t*>(scratch);
-  const dim3 grid(static_cast<unsigned>(blocks)), block(static_cast<unsigned>(tile));
-  const auto st = static_cast<cudaStream_t>(stream);
-  const int fi = static_cast<int>(f);
-  if (scratch == nullptr) {
-    const int64_t smem = Body::kSlabs * f * tile * 2;
-    if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-    auto* kernel = reject_kernel<Body, false, int32_t>;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, block, static_cast<size_t>(smem), st>>>(v, ld, s, out, fi, p, siglow,
-                                                           sighigh);
-  } else if (f < kWideFrames) {
-    reject_kernel<Body, true, int32_t><<<grid, block, 0, st>>>(v, ld, s, out, fi, p, siglow,
-                                                               sighigh);
-  } else {
-    reject_kernel<Body, true, int64_t><<<grid, block, 0, st>>>(v, ld, s, out, fi, p, siglow,
-                                                               sighigh);
-  }
+  pl.kernel<<<static_cast<unsigned>(blocks), pl.threads, static_cast<size_t>(pl.smem),
+              static_cast<cudaStream_t>(stream)>>>(static_cast<const uint16_t*>(vals), ld,
+                                                   static_cast<uint16_t*>(scratch), out,
+                                                   static_cast<int>(f), p, siglow, sighigh);
   return cudaGetLastError();
+}
+
+// Warps of the plan's kernel resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -cudaError_t.
+inline int resident_warps(const Plan& pl) {
+  if (pl.kernel == nullptr || pl.smem > kMaxSmemBytes) return -cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(pl.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(pl.smem));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pl.kernel, pl.threads,
+                                                        static_cast<size_t>(pl.smem));
+  return err == cudaSuccess ? blocks * pl.threads / 32 : -static_cast<int>(err);
+}
+
+// The launch of a kernel at F frames over p pixels: the first of `tiles`
+// (largest first, 0 ends) whose block fits in smem_limit bytes of shared
+// memory (< 0: the 227 KB a block may use); where none fits, the scratch
+// path at the first tile, with the pixels a launch cut to whole blocks
+// until a launch's scratch fits in scratch_limit bytes (one block at
+// least). out[6]: tile, scratch path (0 or 1), pixels a launch, shared
+// memory a block, scratch a launch (bytes), warps resident on one SM.
+// Returns a cudaError_t.
+template <class PlanFn>
+inline int plan_query(PlanFn plan, const int* tiles, int64_t f, int64_t p, int64_t smem_limit,
+                      int64_t scratch_limit, int64_t* out) {
+  if (f < 1 || f > 0x7fffffff || p < 1 || out == nullptr) return cudaErrorInvalidValue;
+  const int64_t limit = smem_limit < 0 || smem_limit > kMaxSmemBytes ? kMaxSmemBytes : smem_limit;
+  int64_t tile = tiles[0], chunk = p;
+  bool scratch = true;
+  Plan pl{};
+  for (const int* t = tiles; *t != 0 && scratch; ++t) {
+    pl = plan(f, *t, false, p);
+    if (pl.kernel != nullptr && pl.smem <= limit) {
+      tile = *t;
+      scratch = false;
+    }
+  }
+  if (scratch) {
+    // a launch's scratch grows by the same bytes with each block
+    const int64_t blocks = scratch_limit / plan(f, tile, true, tile).scratch;
+    chunk = (blocks > 1 ? blocks : 1) * tile;
+    chunk = chunk < p ? chunk : p;
+    pl = plan(f, tile, true, chunk);
+  }
+  const int warps = resident_warps(pl);
+  if (warps < 0) return -warps;
+  const int64_t got[6] = {tile, scratch ? 1 : 0, chunk, pl.smem, pl.scratch, warps};
+  for (int i = 0; i < 6; ++i) out[i] = got[i];
+  return cudaSuccess;
 }
 
 }  // namespace siriltpu
 
-// The C entry of one kernel: reject_<name>_u16, see launch() above.
-#define SIRILTPU_REJECT_ENTRY(name, Body)                                                     \
-  extern "C" int reject_##name##_u16(const void* vals, int64_t ld, void* scratch, void* mean, \
-                                     void* degen, void* rejl, void* rejh, int64_t f,          \
-                                     int64_t p, int64_t tile, float siglow, float sighigh,    \
+// The C entries of one kernel, given its plan function Plan(f, tile,
+// scratch, p) and its tiles: reject_<name>_u16 launches it over p pixels
+// (see launch_plan; scratch is nullptr or scratch_bytes of device memory),
+// and reject_<name>_plan reports its launch at F frames over p pixels (see
+// plan_query).
+#define SIRILTPU_REJECT_ENTRY(name, plan, tiles)                                              \
+  extern "C" int reject_##name##_u16(const void* vals, int64_t ld, void* scratch,             \
+                                     int64_t scratch_bytes, void* mean, void* degen,          \
+                                     void* rejl, void* rejh, int64_t f, int64_t p,            \
+                                     int64_t tile, float siglow, float sighigh,               \
                                      void* stream) {                                          \
-    return siriltpu::launch<Body>(vals, ld, scratch, mean, degen, rejl, rejh, f, p, tile,    \
-                                  siglow, sighigh, stream);                                   \
+    return siriltpu::launch_plan(plan(f, tile, scratch != nullptr, p), vals, ld, scratch,     \
+                                 scratch_bytes, mean, degen, rejl, rejh, f, p, siglow,        \
+                                 sighigh, stream);                                            \
+  }                                                                                           \
+  extern "C" int reject_##name##_plan(int64_t f, int64_t p, int64_t smem_limit,               \
+                                      int64_t scratch_limit, int64_t* out) {                  \
+    return siriltpu::plan_query(plan, tiles, f, p, smem_limit, scratch_limit, out);           \
   }

@@ -23,10 +23,8 @@ namespace {
 using namespace siriltpu;
 
 struct MedianBody {
-  static constexpr int kSlabs = 1;
-
   template <typename Acc, class C>
-  static __device__ Result run(const C& x, const C&, int f, float, float) {
+  static __device__ Result run(const C& x, int f, float, float) {
     const float med = median_of(x[(f - 1) / 2], x[f / 2]);
     const int32_t m = static_cast<int32_t>(fminf(fmaxf(med, 0.0f), 65535.0f));
     return {m, 0, 0, 0};
@@ -35,4 +33,4 @@ struct MedianBody {
 
 }  // namespace
 
-SIRILTPU_REJECT_ENTRY(median, MedianBody)
+SIRILTPU_REJECT_ENTRY(median, thread_plan<MedianBody>, kThreadTiles)

@@ -27,10 +27,8 @@ namespace {
 using namespace siriltpu;
 
 struct PercentileBody {
-  static constexpr int kSlabs = 1;
-
   template <typename Acc, class C>
-  static __device__ Result run(const C& x, const C&, int f, float plow, float phigh) {
+  static __device__ Result run(const C& x, int f, float plow, float phigh) {
     const float median = median_of(x[(f - 1) / 2], x[f / 2]);
     const float medsafe = median == 0.0f ? 1e-30f : median;
     int nlow = 0;
@@ -53,4 +51,4 @@ struct PercentileBody {
 
 }  // namespace
 
-SIRILTPU_REJECT_ENTRY(percentile, PercentileBody)
+SIRILTPU_REJECT_ENTRY(percentile, thread_plan<PercentileBody>, kThreadTiles)

@@ -31,10 +31,8 @@ namespace {
 using namespace siriltpu;
 
 struct SigmedianBody {
-  static constexpr int kSlabs = 1;
-
   template <typename Acc, class C>
-  static __device__ Result run(const C& x, const C&, int f, float siglow, float sighigh) {
+  static __device__ Result run(const C& x, int f, float siglow, float sighigh) {
     int rl = 0, rh = 0;
     for (int it = 0; it < kMaxIters; ++it) {
       const float median = median_of(x[(f - 1) / 2], x[f / 2]);
@@ -70,4 +68,4 @@ struct SigmedianBody {
 
 }  // namespace
 
-SIRILTPU_REJECT_ENTRY(sigmedian, SigmedianBody)
+SIRILTPU_REJECT_ENTRY(sigmedian, thread_plan<SigmedianBody>, kThreadTiles)

@@ -1,40 +1,53 @@
 // Winsorized sigma clipping: per-pixel sort + winsorization fixed point +
-// windowed outer sigma clip + survivor mean, for Hopper.
+// windowed outer sigma clip + survivor mean, with the exact re-run of
+// degenerate pixels, for Hopper.
 //
 // Replaces siril-0.9_tpu/siriltpu/ops/pallas/reject_stack.py:
 // _make_kernel(..., "winsorized"), both its full-height body (:611-795)
 // and its strip body (:358-609, F > 896), reached through the pallas_call
-// in _reject_stack_raw (:1079-1122). The TPU needs two bodies only
-// because of its scoped-VMEM limit; this is one kernel for every F. Its
-// plain PyTorch version is
-// siriltpu_torch/ops/rejection.py:reject_winsorized_window, which it
-// matches bit for bit: mean, degenerate flag and both counters.
+// in _reject_stack_raw (:1079-1122), and the wrapper's fix-up of its
+// degenerate pixels (:1143-1167). The TPU needs two bodies only because
+// of its scoped-VMEM limit; this is one kernel for every F. Its plain
+// PyTorch version is siriltpu_torch/ops/cuda/reject_stack.py:reject_plain
+// ("winsorized": reject_winsorized_window, then the masked
+// reject_winsorized on the degenerate pixels), which it matches bit for
+// bit: mean, degenerate flag and both counters.
 //
 // Per pixel, on the sorted column x (stacking.c:1710-1748):
 // - all arithmetic is centred on anchor = x[F/2] of the full column: a
 //   value v is v - anchor in the f32 statistics;
-// - each pass of the outer clip starts the fixed point from the window
-//   [lo, hi) as it is: the median, and the sd anchored on x[lo + n/2];
-//   and it re-seeds the working copy w from x;
-// - a fixed-point step clamps w's window to round_shift(med -+ 1.5f*sig)
-//   (floor(t + 0.5), clipped to [-anchor, 65535 - anchor]), then takes
-//   the median of the clamped window and sig = 1.134f * its sd, anchored
-//   on w[lo + n/2] (not on lo + (n-1)/2 as sigma does: that flips clip
-//   decisions). It stops once sig <= 0 or |sig_new - sig| /
-//   max(sig, 1e-30f) <= 0.0005f, or after 512 steps. Clamping is monotone,
-//   so the window stays sorted, and the clamps of successive steps
-//   compose, so w is a copy of its own: clamped values stay within
-//   [0, 65535] in the original domain and w is a second uint16 slab;
+// - each pass of the outer clip starts the fixed point (winsor_converge,
+//   reject_common.cuh) from the window [lo, hi) as it is, with the working
+//   copy re-seeded from x; the working copy is clamp(x, A, B), two bounds
+//   a pixel and no second slab;
 // - the outer predicate is sigma's, med - v > siglow * sig, on the
-//   unclamped x. The degenerate rule is sigma's (N - r <= 4 freezes and
-//   flags the pixel for the wrapper's exact re-run; for F <= 4 that is
-//   every pixel: correct, only slower), rejl = lo and rejh = F - hi;
-// - the mean is the exact integer mean of x over the window.
+//   unclamped x; rejl = lo and rejh = F - hi; the mean is the exact
+//   integer mean of x over the window;
+// - a pass whose scan would hit the reference's mid-scan break freezes the
+//   window form, and the warp re-runs the pixel through exact_masked with
+//   the same fixed point on the valid slots (for F <= 4, every pixel).
 //
-// What bounds it on an H100: two slabs of F * tile * 2 bytes, so at F =
-// 1000 a block of 32 pixels takes 128 KB of shared memory and an SM holds
-// one block, one warp. Each fixed-point step is one fused clamp + sums
-// pass over the window; the steps, not the sort, dominate.
+// What bounds it on an H100: a first design, one thread a pixel with two
+// uint16 slabs of F * tile, left one warp per SM at F = 1000 (128 KB a
+// block of 32 pixels) to run ~27k serial compare-exchanges and ~40 O(F)
+// fixed-point steps a pixel with nothing to hide their latency: 176 ms at
+// 1000 x 307200 against a 0.18 ms device-memory bound. The work is
+// shared-memory and integer instructions, not bytes.
+//
+// The design here: a warp a pixel, for every F (a team of 32 lanes; at
+// F < 32 most lanes idle, which no configuration's path does). A block of
+// `tile` warps (8, 4, 2 or 1) owns `tile` neighbouring pixels and loads
+// their columns together: each frame row gives 2 * tile contiguous bytes.
+// Each warp then sorts its column in shared memory with the pruned
+// bitonic network, 32 compare-exchanges at a time, and splits every
+// fixed-point step and the window mean across its lanes (slot lo + lane
+// + 32k); the sums are exact integers, so the warp reduction gives the
+// same sums in any order, and the one f32 combine, the 1.5 and 1.134
+// products, the convergence test and round_shift are computed by every
+// lane alike, in the JAX order. At F = 1000 a block of 8 pixels takes
+// 19 KB, so the SM holds many warps instead of one. Past 227 KB at tile 1
+// (F > ~97k) the columns and masks go to a device-memory scratch, one
+// pixel's workspace after another.
 
 #include "reject_common.cuh"
 
@@ -42,65 +55,108 @@ namespace {
 
 using namespace siriltpu;
 
-struct WinsorizedBody {
-  static constexpr int kSlabs = 2;
-
-  template <typename Acc, class C>
-  static __device__ Result run(const C& x, const C& w, int f, float siglow, float sighigh) {
-    const int32_t anchor = x[f / 2];
-    const float lo_clip = -static_cast<float>(anchor);
-    const float hi_clip = 65535.0f - static_cast<float>(anchor);
-    // round_shift of the JAX code, back in the original domain
-    auto bound = [&](float t) -> int32_t {
-      float r = floorf(t + 0.5f);
-      if (t <= lo_clip) r = lo_clip;
-      if (t > hi_clip) r = hi_clip;
-      return static_cast<int32_t>(r) + anchor;
-    };
-    auto shifted_median = [&](const C& v, int k1, int k2) {
-      return median_of(static_cast<int32_t>(v[k1]) - anchor, static_cast<int32_t>(v[k2]) - anchor);
-    };
-
-    Window win{0, f, 0, 0};
-    for (int oit = 0; oit < kMaxIters; ++oit) {
-      const int lo = win.lo, hi = win.hi, n = hi - lo;
-      const int k1 = lo + (n - 1) / 2, k2 = lo + n / 2;
-      float med = shifted_median(x, k1, k2);
-      float sig;
-      {
-        const int32_t a = x[k2];
-        SdSums<Acc> sums;
-        for (int i = lo; i < hi; ++i) {
-          const uint16_t v = x[i];
-          w[i] = v;
-          sums.add(static_cast<int32_t>(v) - a);
-        }
-        sig = sums.sd(n);
-      }
-      for (int iit = 0; iit < kMaxIters; ++iit) {
-        const int32_t r0 = bound(med - 1.5f * sig);
-        const int32_t r1 = bound(med + 1.5f * sig);
-        auto clamp = [&](int32_t v) { return v < r0 ? r0 : (v > r1 ? r1 : v); };
-        const int32_t a = clamp(w[k2]);
-        SdSums<Acc> sums;
-        for (int i = lo; i < hi; ++i) {
-          const int32_t v = clamp(w[i]);
-          w[i] = static_cast<uint16_t>(v);
-          sums.add(v - a);
-        }
-        const float med_new = shifted_median(w, k1, k2);
-        const float sig_new = 1.134f * sums.sd(n);
-        const bool conv = sig <= 0.0f || fabsf(sig_new - sig) / fmaxf(sig, 1e-30f) <= 0.0005f;
-        med = med_new;
-        sig = sig_new;
-        if (conv) break;
-      }
-      if (!win.step(sigma_flags(x, lo, hi, med, siglow * sig, sighigh * sig, anchor))) break;
+// Ascending sort of the contiguous column col[0..f) by a warp: the pruned
+// all-ascending bitonic network of sort_column, each stage's comparators
+// split across the lanes.
+__device__ __forceinline__ void team_sort(uint16_t* col, int f) {
+  const int lane = lane_id();
+  auto cmp_swap = [&](int i, int l) {
+    const uint16_t a = col[i], b = col[l];
+    col[i] = a < b ? a : b;
+    col[l] = a < b ? b : a;
+  };
+  for (int lk = 1; (1 << (lk - 1)) < f; ++lk) {
+    // flip stage of 2^lk: (base + t, base + k - 1 - t), t < k / 2
+    const int k = 1 << lk, lh = lk - 1;
+    const int pairs = ((f + k - 1) >> lk) << lh;
+    for (int q = lane; q < pairs; q += 32) {
+      const int base = (q >> lh) << lk, t = q & ((1 << lh) - 1);
+      const int l = base + k - 1 - t;
+      if (l < f) cmp_swap(base + t, l);
     }
-    return {window_mean<Acc>(x, win.lo, win.hi), win.degen, win.lo, f - win.hi};
+    __syncwarp();
+    // half-cleaners: (base + t, base + t + j), t < j
+    for (int lj = lk - 2; lj >= 0; --lj) {
+      const int j = 1 << lj;
+      const int jpairs = ((f + 2 * j - 1) >> (lj + 1)) << lj;
+      for (int q = lane; q < jpairs; q += 32) {
+        const int base = (q >> lj) << (lj + 1), t = q & (j - 1);
+        const int l = base + t + j;
+        if (l < f) cmp_swap(base + t, l);
+      }
+      __syncwarp();
+    }
   }
-};
+}
+
+// The window form on the sorted column, then the exact re-run if it froze.
+template <typename Acc, class C>
+__device__ __forceinline__ Result winsor_pixel(const C& x, int f, float siglow, float sighigh,
+                                               Masks m) {
+  const int32_t anchor = x[f / 2];
+  Window win{0, f, 0, 0};
+  for (int oit = 0; oit < kMaxIters; ++oit) {
+    const int lo = win.lo, hi = win.hi;
+    float med, sig;
+    winsor_converge<Acc>(x, WindowSet{lo, hi}, hi - lo, anchor, med, sig);
+    if (!win.step(sigma_flags(x, lo, hi, med, siglow * sig, sighigh * sig, anchor))) break;
+  }
+  if (win.degen) return exact_masked<Acc>(x, f, m, siglow, sighigh, WinsorStats{anchor});
+  return {team_mean<Acc>(x, WindowSet{win.lo, win.hi}, win.hi - win.lo), 0, win.lo,
+          f - win.hi};
+}
+
+// 32-bit words of one pixel's workspace: the column (F rounded up to
+// even) and its 3 * ceil(F / 32) mask words.
+__host__ __device__ __forceinline__ int64_t pixel_words(int64_t f) {
+  return (f + 1) / 2 + 3 * ((f + 31) / 32);
+}
+
+template <bool kScratch, typename Acc>
+__global__ void __launch_bounds__(256)
+    winsorized_kernel(const uint16_t* __restrict__ vals, int64_t ld,
+                      uint16_t* __restrict__ scratch, Outputs out, int f, int64_t p,
+                      float siglow, float sighigh) {
+  extern __shared__ uint16_t slab[];
+  const int tile = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int64_t px0 = static_cast<int64_t>(blockIdx.x) * tile;
+  const int64_t words = pixel_words(f);
+  uint32_t* ws = reinterpret_cast<uint32_t*>(kScratch ? scratch : slab) +
+                 (kScratch ? px0 * words : 0);
+  const int npx = static_cast<int>(p - px0 < tile ? p - px0 : tile);
+  // the block's pixels of every frame row, 2 * tile contiguous bytes a row
+  const int ltile = __ffs(tile) - 1;
+  for (int64_t e = threadIdx.x; e < static_cast<int64_t>(f) << ltile; e += blockDim.x) {
+    const int i = static_cast<int>(e >> ltile), k = static_cast<int>(e & (tile - 1));
+    if (k < npx)
+      reinterpret_cast<uint16_t*>(ws + k * words)[i] = vals[i * ld + px0 + k];
+  }
+  __syncthreads();
+  if (warp >= npx) return;
+  uint32_t* mine = ws + warp * words;
+  auto* col = reinterpret_cast<uint16_t*>(mine);
+  team_sort(col, f);
+  const Result r = winsor_pixel<Acc>(Column<int>{col, 1}, f, siglow, sighigh,
+                                     masks_at(mine + (f + 1) / 2, (f + 31) / 32));
+  if (lane_id() == 0) out.write(px0 + warp, r);
+}
+
+// Pixels a block, a warp each, largest first (0 ends).
+constexpr int kWarpTiles[] = {8, 4, 2, 1, 0};
+
+// tile pixels a block, tile * pixel_words(F) words of shared memory, or
+// the scratch: pixel_words(F) words for each of the launch's p pixels.
+Plan winsorized_plan(int64_t f, int64_t tile, bool scratch, int64_t p) {
+  if (tile != 1 && tile != 2 && tile != 4 && tile != 8) return {};
+  const int t = static_cast<int>(tile);
+  if (scratch) {
+    return {f < kWideFrames ? winsorized_kernel<true, int32_t> : winsorized_kernel<true, int64_t>,
+            32 * t, t, 0, p * pixel_words(f) * 4};
+  }
+  return {winsorized_kernel<false, int32_t>, 32 * t, t, tile * pixel_words(f) * 4, 0};
+}
 
 }  // namespace
 
-SIRILTPU_REJECT_ENTRY(winsorized, WinsorizedBody)
+SIRILTPU_REJECT_ENTRY(winsorized, winsorized_plan, kWarpTiles)

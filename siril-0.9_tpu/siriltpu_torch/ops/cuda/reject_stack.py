@@ -1,21 +1,32 @@
 """Rejection stack of (F, P) uint16 pixels: the five CUDA rejection
-kernels (``csrc/reject_<name>.cu``), their plain PyTorch versions, and the
-exact re-run of degenerate pixels.
+kernels (``csrc/reject_<name>.cu``) and their plain PyTorch versions.
 
 Port of ``siriltpu.ops.pallas.reject_stack`` (``reject_stack_pallas``):
 one kernel for each branch of the Pallas body — sigma, median,
-percentile, sigmedian and winsorized.
+percentile, sigmedian and winsorized — and, for sigma and winsorized, the
+exact re-run of the pixels the window form flags as degenerate, which the
+JAX wrapper does after its kernel. Here the kernels do it themselves: the
+warp that owns a degenerate pixel runs the reference's masked loop on the
+sorted column it holds (``exact_masked`` in ``csrc/reject_common.cuh``).
+So a CUDA stack is one launch per span of pixels and no host sync.
+
+How the kernels own pixels (the C plans, ``csrc/reject_<name>.cu``):
+median, percentile and sigmedian give each pixel a thread and its column
+a stride of shared memory; sigma too, but it sorts a column of F <= 128
+in registers; winsorized gives each pixel a warp, ``tile`` pixels a
+block. Each kernel's C plan is the one place its layout is written down:
+``launch_plan`` asks it for the largest tile whose shared memory fits in
+the 227 KB a block may use, or, where none fits, for the device-memory
+scratch copy the kernel works on instead, so every F runs on the card.
 
 A CUDA tensor always goes to its kernel, and a failed build or launch
-raises. A CPU tensor goes to the kernel's plain version. Every F runs on
-the card: where a pixel's column (two for winsorized) does not fit in
-shared memory at the smallest tile, the kernel works on a device-memory
-scratch copy instead.
+raises. A CPU tensor goes to the kernel's plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -30,30 +41,45 @@ from siriltpu_torch.utils.build import KERNELS
 #: by chip_smoke.py to show that a path went through its kernels)
 launches = dict.fromkeys(KERNELS, 0)
 
-#: shared memory one block may use on sm_90 (227 KB)
-SMEM_LIMIT = 232448
-_TILES = (128, 64, 32)
-#: pixels a block on the device-memory scratch path
-SCRATCH_TILE = 128
+#: shared memory a block may use, bytes; None: all that sm_90 allows
+#: (227 KB). A smaller limit sends more F to the scratch path.
+SMEM_LIMIT = None
 #: bytes of device-memory scratch one launch may use; more pixels run in
 #: further launches
 SCRATCH_BYTES = 1 << 30
-#: uint16 slabs of F values a pixel needs: winsorized keeps a working copy
-_SLABS = {"winsorized": 2}
-#: rejections whose window kernel flags degenerate pixels for the exact
-#: masked re-run
-_FIXUP = {"sigma": reject_sigma, "winsorized": reject_winsorized}
+#: the window form and the exact masked loop of the rejections whose
+#: kernels settle degenerate pixels
+_WINDOWED = {"sigma": (reject_sigma_window, reject_sigma),
+             "winsorized": (reject_winsorized_window, reject_winsorized)}
 
 
-def pick_tile(f: int, rejection: str = "sigma"):
-    """Pixels per block for F frames: the largest tile whose columns fit
-    in shared memory, or None when even the smallest does not — the
-    kernel then runs on a device-memory scratch copy."""
-    slabs = _SLABS.get(rejection, 1)
-    for tile in _TILES:
-        if slabs * f * tile * 2 <= SMEM_LIMIT:
-            return tile
-    return None
+class Plan(NamedTuple):
+    """A kernel's launch at F frames over P pixels, as its C plan
+    (``reject_<name>_plan``, the one place the layout is written down)
+    reports it."""
+
+    tile: int           # pixels a block
+    scratch: bool       # the columns live in a device-memory scratch
+    chunk: int          # pixels a launch
+    smem: int           # dynamic shared memory of a block, bytes
+    scratch_bytes: int  # device-memory scratch of one launch, bytes
+    warps: int          # warps of the kernel resident on one SM
+
+
+def launch_plan(rejection: str, f: int, p: int = 1) -> Plan:
+    """How the kernel runs at F frames over p pixels on the current card:
+    the largest tile whose block fits in ``SMEM_LIMIT``, or the
+    device-memory scratch path in launches of at most ``SCRATCH_BYTES``."""
+    from siriltpu_torch.utils.build import library
+
+    if rejection not in KERNELS:
+        raise ValueError(f"no rejection kernel {rejection!r}")
+    out = (ctypes.c_int64 * 6)()
+    rc = getattr(library(), f"reject_{rejection}_plan")(
+        f, p, -1 if SMEM_LIMIT is None else SMEM_LIMIT, SCRATCH_BYTES, out)
+    if rc != 0:
+        raise RuntimeError(f"reject_{rejection}_plan failed: cudaError_t {rc}")
+    return Plan(out[0], bool(out[1]), *out[2:])
 
 
 def _check(vals: torch.Tensor, rejection: str):
@@ -69,13 +95,22 @@ def _check(vals: torch.Tensor, rejection: str):
 def reject_plain(vals: torch.Tensor, rejection: str, siglow: float,
                  sighigh: float):
     """The plain version of a kernel, on any device: (mean uint16, degen
-    int32, rejl int32, rejh int32), each (P,)."""
+    int32, rejl int32, rejh int32), each (P,). For sigma and winsorized,
+    the window form, then the exact masked loop on the pixels it flags as
+    degenerate, whose flag stays 1 — as the kernels do."""
     _check(vals, rejection)
     p = vals.shape[1]
-    if rejection in ("sigma", "winsorized"):
-        window = (reject_sigma_window if rejection == "sigma"
-                  else reject_winsorized_window)
+    if rejection in _WINDOWED:
+        window, exact = _WINDOWED[rejection]
         mean, rejl, rejh, degen = window(vals, siglow, sighigh)
+        # host sync: the number of degenerate pixels sizes the gather
+        idx = torch.nonzero(degen).flatten()
+        if idx.numel():
+            cols = vals.view(torch.int16).index_select(1, idx).view(torch.uint16)
+            valid, v, srl, srh = exact(cols, siglow, sighigh)
+            mean.view(torch.int16)[idx] = _mean_of_survivors(v, valid).view(torch.int16)
+            rejl[idx] = srl
+            rejh[idx] = srh
         return mean, degen.to(torch.int32), rejl, rejh
     z = torch.zeros(p, dtype=torch.int32, device=vals.device)
     if rejection == "median":
@@ -102,51 +137,24 @@ def reject_cuda(vals: torch.Tensor, rejection: str, siglow: float,
     mean = torch.empty(p, dtype=torch.int16, device=dev)
     degen, rejl, rejh = (torch.empty(p, dtype=torch.int32, device=dev)
                          for _ in range(3))
-    tile = pick_tile(f, rejection)
-    if tile is None:
-        slabs = _SLABS.get(rejection, 1)
-        chunk = max(SCRATCH_TILE, SCRATCH_BYTES // (2 * slabs * f)
-                    // SCRATCH_TILE * SCRATCH_TILE)
-        chunk = min(chunk, p)
-        scratch = torch.empty(slabs * f * chunk, dtype=torch.int16, device=dev)
-        spans = [(a, min(a + chunk, p)) for a in range(0, p, chunk)]
-        tile = SCRATCH_TILE
-    else:
-        scratch, spans = None, [(0, p)]
     with torch.cuda.device(dev):
+        plan = launch_plan(rejection, f, p)
+        scratch = (torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
+                   if plan.scratch else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for a, b in spans:
+        for a in range(0, p, plan.chunk):
+            b = min(a + plan.chunk, p)
             rc = fn(vals.data_ptr() + 2 * a, p,
                     None if scratch is None else scratch.data_ptr(),
-                    mean.data_ptr() + 2 * a, degen.data_ptr() + 4 * a,
-                    rejl.data_ptr() + 4 * a, rejh.data_ptr() + 4 * a,
-                    f, b - a, tile, ctypes.c_float(siglow),
-                    ctypes.c_float(sighigh), stream)
+                    plan.scratch_bytes, mean.data_ptr() + 2 * a,
+                    degen.data_ptr() + 4 * a, rejl.data_ptr() + 4 * a,
+                    rejh.data_ptr() + 4 * a, f, b - a, plan.tile,
+                    ctypes.c_float(siglow), ctypes.c_float(sighigh), stream)
             if rc != 0:
                 raise RuntimeError(f"reject_{rejection}_u16 launch failed: "
                                    f"cudaError_t {rc}")
             launches[rejection] += 1
     return mean.view(torch.uint16), degen, rejl, rejh
-
-
-def fix_degenerate(vals: torch.Tensor, rejection: str, mean: torch.Tensor,
-                   degen: torch.Tensor, rejl: torch.Tensor, rejh: torch.Tensor,
-                   siglow: float, sighigh: float):
-    """Re-run every degenerate pixel through the exact masked
-    ``reject_sigma`` or ``reject_winsorized`` and write its mean and
-    counters back, in place.
-
-    The counterpart of the JAX wrapper's fix-up, without its cap of
-    DEGEN_K = 128 pixels per call."""
-    # host sync: the number of degenerate pixels sizes the gather
-    idx = torch.nonzero(degen).flatten()
-    if idx.numel():
-        cols = vals.view(torch.int16).index_select(1, idx).view(torch.uint16)
-        valid, v, srl, srh = _FIXUP[rejection](cols, siglow, sighigh)
-        mean.view(torch.int16)[idx] = _mean_of_survivors(v, valid).view(torch.int16)
-        rejl[idx] = srl
-        rejh[idx] = srh
-    return mean, rejl, rejh
 
 
 def reject_stack(vals: torch.Tensor, rejection: str, siglow: float,
@@ -159,26 +167,24 @@ def reject_stack(vals: torch.Tensor, rejection: str, siglow: float,
 
     Bit-exact against ``reject_and_mean`` (``masked_median`` for median),
     counters included. A CUDA tensor runs the CUDA kernel, a CPU tensor
-    its plain version; then for sigma and winsorized every pixel the
-    window formulation flags as degenerate is re-run exactly. The JAX
-    ``reject_stack_pallas`` fixes at most DEGEN_K = 128 such pixels per
-    call and leaves the window result past that; this port fixes them
-    all, so past 128 degenerate pixels it matches ``reject_and_mean``
-    where the fused JAX output does not. For F <= 4 every sigma and
-    winsorized pixel is degenerate (the JAX package sends such stacks to
-    its HBM path instead): the result is the same, only slower."""
+    its plain version; for sigma and winsorized both settle every pixel
+    the window formulation flags as degenerate with the exact masked
+    loop. The JAX ``reject_stack_pallas`` fixes at most DEGEN_K = 128
+    such pixels per call and leaves the window result past that; this
+    port settles them all, so past 128 degenerate pixels it matches
+    ``reject_and_mean`` where the fused JAX output does not. For F <= 4
+    every sigma and winsorized pixel is degenerate (the JAX package sends
+    such stacks to its HBM path instead): the result is the same, only
+    slower. The CUDA route makes no host sync."""
     siglow, sighigh = float(siglow), float(sighigh)
     if vals.device.type == "cuda":
-        mean, degen, rejl, rejh = reject_cuda(vals, rejection, siglow, sighigh)
+        mean, _, rejl, rejh = reject_cuda(vals, rejection, siglow, sighigh)
     elif vals.device.type == "cpu":
-        mean, degen, rejl, rejh = reject_plain(vals, rejection, siglow, sighigh)
+        mean, _, rejl, rejh = reject_plain(vals, rejection, siglow, sighigh)
     else:
         raise ValueError(f"no rejection kernel for device {vals.device}")
-    if rejection in _FIXUP:
-        mean, rejl, rejh = fix_degenerate(vals, rejection, mean, degen, rejl,
-                                          rejh, siglow, sighigh)
     return (mean, rejl, rejh) if with_counters else mean
 
 
-__all__ = ["reject_stack", "reject_cuda", "reject_plain", "fix_degenerate",
-           "pick_tile", "launches"]
+__all__ = ["reject_stack", "reject_cuda", "reject_plain", "launch_plan",
+           "Plan", "launches"]

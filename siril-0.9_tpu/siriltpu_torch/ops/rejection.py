@@ -1,6 +1,6 @@
 """Pixel rejection, vectorized over pixels — the plain PyTorch versions
-of the CUDA rejection kernels and the exact fix-up for their degenerate
-pixels.
+of the CUDA rejection kernels, including the exact masked loops that
+settle the pixels the window forms flag as degenerate.
 
 Port of ``siriltpu.ops.rejection`` (linearfit is not ported yet).
 Reference: src/stacking/stacking.c:1128-1186 (clip predicates) and
@@ -436,7 +436,8 @@ def reject_winsorized_window(vals: Tensor, siglow: float, sighigh: float,
     |dsigma| / sigma <= 5e-4 or sigma <= 0, at most MAX_ITERS steps. The
     outer clip is sigma's predicate on the unclamped values, with sigma's
     DEGENERATE rule; callers re-run degenerate pixels through
-    reject_winsorized.
+    reject_winsorized. The working copy is carried as two bounds a pixel,
+    clamp(values, A, B), as the kernel carries it.
 
     Returns (mean uint16 (P,), rejl, rejh, degenerate bool (P,))."""
     f, p = vals.shape
@@ -466,6 +467,9 @@ def reject_winsorized_window(vals: Tensor, siglow: float, sighigh: float,
         median = 0.5 * (_at(v, lo + (n - 1) // 2) + a).to(torch.float32)
         return median, _sd_of_deviations(torch.where(mask, v - a[None, :], 0), n)
 
+    def clamp(v, a, b):
+        return torch.minimum(torch.maximum(v, a), b)
+
     z = torch.zeros(p, dtype=torch.int32, device=dev)
     lo, hi, r = z, torch.full_like(z, f), z
     done = torch.zeros(p, dtype=torch.bool, device=dev)
@@ -477,21 +481,25 @@ def reject_winsorized_window(vals: Tensor, siglow: float, sighigh: float,
         n = hi - lo
         mask = (iota >= lo[None, :]) & (iota < hi[None, :])
         med, sig = stats(svi, lo, n, mask)
-        w = svi
+        # the working copy is clamp(svi, A, B): the integer clamp equals
+        # the reference's where-chain on integer values and keeps the
+        # window sorted, and clamps compose, clamp(clamp(v, A, B), r0, r1)
+        # == clamp(v, clamp(A, r0, r1), clamp(B, r0, r1)), so two bounds a
+        # pixel carry it from step to step, as in the CUDA kernel
+        lo_b, hi_b = (-anchor).to(torch.int32), (65535 - anchor).to(torch.int32)
         conv = done
         iit = 0
         while iit < MAX_ITERS and not bool(conv.all()):
             r0 = round_shift(med - c15 * sig)
             r1 = round_shift(med + c15 * sig)
-            # the integer clamp equals the reference's where-chain on
-            # integer values, and keeps the window sorted
-            wv = torch.where(mask, torch.minimum(torch.maximum(w, r0[None, :]),
-                                                 r1[None, :]), w)
-            med_new, sd_new = stats(wv, lo, n, mask)
+            a_new, b_new = clamp(lo_b, r0, r1), clamp(hi_b, r0, r1)
+            med_new, sd_new = stats(clamp(svi, a_new[None, :], b_new[None, :]),
+                                    lo, n, mask)
             sig_new = c1134 * sd_new
             newconv = (sig <= 0) | (
                 torch.abs(sig_new - sig) / torch.maximum(sig, tiny) <= tol)
-            w = torch.where(conv[None, :], w, wv)
+            lo_b = torch.where(conv, lo_b, a_new)
+            hi_b = torch.where(conv, hi_b, b_new)
             med = torch.where(conv, med, med_new)
             sig = torch.where(conv, sig, sig_new)
             conv = conv | newconv

@@ -27,7 +27,9 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-#: the kernels of the library: each has the C entry reject_<name>_u16
+#: the kernels of the library: each has the C entries reject_<name>_u16
+#: (the launch) and reject_<name>_plan (its block, shared memory, scratch
+#: and occupancy)
 KERNELS = ("sigma", "median", "percentile", "sigmedian", "winsorized")
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -115,11 +117,15 @@ def library() -> ctypes.CDLL:
     ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
     for name in KERNELS:
         fn = getattr(lib, f"reject_{name}_u16")
-        # vals, ld, scratch, mean, degen, rejl, rejh, f, p, tile,
-        # siglow, sighigh, stream
-        fn.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
+        # vals, ld, scratch, scratch_bytes, mean, degen, rejl, rejh, f, p,
+        # tile, siglow, sighigh, stream
+        fn.argtypes = [ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, i64, i64, i64,
                        f32, f32, ptr]
         fn.restype = ctypes.c_int
+        plan = getattr(lib, f"reject_{name}_plan")
+        # f, p, smem_limit, scratch_limit, out (6 int64)
+        plan.argtypes = [i64, i64, i64, i64, ctypes.POINTER(i64)]
+        plan.restype = ctypes.c_int
     return lib
 
 

@@ -93,10 +93,11 @@ def test_cpu_route_matches_pallas_interpret_fused(rejection, F):
                                       err_msg=name)
 
 
-@pytest.mark.parametrize("F", [12, 25, 64])
+@pytest.mark.parametrize("F", [5, 12, 25, 64, 100])
 def test_winsorized_window_matches_pallas_raw(F):
-    """The plain winsorized window form against the raw Pallas winsorized
-    body, degenerate flags included (before any fix-up). Fewer than 50
+    """The plain winsorized window form, which carries its working copy as
+    two clamp bounds a pixel, against the raw Pallas winsorized body,
+    degenerate flags included (before any exact re-run). Fewer than 50
     passes and steps a pixel, as above."""
     import jax.numpy as jnp
 
@@ -105,7 +106,9 @@ def test_winsorized_window_matches_pallas_raw(F):
     vals = make_vals(F, 256)
     want = _reject_stack_raw(jnp.asarray(vals), "winsorized", 2.5, 2.5,
                              tile=256, interpret=True)
-    got = rs.reject_plain(frames_from_numpy(vals, "cpu"), "winsorized", 2.5, 2.5)
+    mean, rejl, rejh, degen = trej.reject_winsorized_window(
+        frames_from_numpy(vals, "cpu"), 2.5, 2.5)
+    got = mean, degen, rejl, rejh
     for name, g, w in zip(("mean", "degen", "rejl", "rejh"), got, want):
         np.testing.assert_array_equal(_ints(g), np.asarray(w).astype(np.int32),
                                       err_msg=name)
@@ -172,6 +175,36 @@ def test_more_than_degen_k_degenerate_pixels_winsorized():
                                       err_msg=name)
 
 
+#: (F, P, geomspace column every, sig): F in {5, 12, 25, 100}, and one case
+#: with more than DEGEN_K = 128 degenerate pixels
+PLAIN_CASES = [(5, 256, 7, 1.5), (12, 256, 7, 2.5), (25, 256, 7, 2.5),
+               (100, 256, 7, 3.0), (25, 768, 3, 2.5)]
+
+
+@pytest.mark.parametrize("rejection", ["sigma", "winsorized"])
+@pytest.mark.parametrize("F,P,every,sig", PLAIN_CASES)
+def test_reject_plain_matches_jax_reject_and_mean(rejection, F, P, every, sig):
+    """The plain version of the sigma and winsorized kernels (the window
+    form, then the exact masked loop on its degenerate pixels) is JAX
+    reject_and_mean's result, mean and both counters, and keeps the
+    window form's degenerate flag."""
+    import jax.numpy as jnp
+
+    from siriltpu.ops.rejection import reject_and_mean
+
+    vals = make_vals(F, P, degen_every=every)
+    t = frames_from_numpy(vals, "cpu")
+    mean, degen, rejl, rejh = rs.reject_plain(t, rejection, sig, sig)
+    window = (trej.reject_sigma_window if rejection == "sigma"
+              else trej.reject_winsorized_window)
+    np.testing.assert_array_equal(_ints(degen), _ints(window(t, sig, sig)[3]))
+    assert int(degen.sum()) > (128 if P > 256 else 0)
+    want = reject_and_mean(jnp.asarray(vals), rejection, (sig, sig))
+    for name, g, w in zip(("mean", "rejl", "rejh"), (mean, rejl, rejh), want):
+        np.testing.assert_array_equal(_ints(g), np.asarray(w).astype(np.int32),
+                                      err_msg=name)
+
+
 def test_wrapper_rejects_bad_input():
     with pytest.raises(TypeError):
         rs.reject_stack(torch.zeros((5, 8), dtype=torch.int32), "sigma", 3.0, 3.0)
@@ -185,15 +218,6 @@ def test_wrapper_rejects_bad_input():
                         3.0, 3.0)
     with pytest.raises(ValueError):
         rs.reject_cuda(torch.zeros((5, 8), dtype=torch.uint16), "sigma", 3.0, 3.0)
-    assert rs.pick_tile(100) == 128
-    assert rs.pick_tile(1000) == 64
-    assert rs.pick_tile(1000, "winsorized") == 32
-    # past the shared-memory bound the kernels run on a device-memory
-    # scratch copy: no F is refused
-    assert rs.pick_tile(3632) == 32
-    assert rs.pick_tile(4000) is None
-    assert rs.pick_tile(1816, "winsorized") == 32
-    assert rs.pick_tile(2000, "winsorized") is None
 
 
 def test_port_imports_without_jax_or_siriltpu():
@@ -224,27 +248,38 @@ def cuda_device():
     return torch.device("cuda")
 
 
-#: (rejection, F) cases on the card: every kernel at F in {2, ..., 1000},
-#: and past the shared-memory bound (the device-memory scratch path)
+#: (rejection, F) cases on the card: every kernel at F in {2, ..., 1000};
+#: sigma and winsorized also at the borders of their designs (sigma's
+#: register sort of 32, 64 or 128 wires up to F = 128, winsorized's
+#: 32-slot chunks and mask words); and past the shared-memory bound (the
+#: device-memory scratch path)
+BORDER_FS = (63, 65, 127, 128, 129, 511, 512, 1024, 1025)
 CUDA_CASES = ([(r, f) for r in KERNELS
                for f in (2, 3, 5, 12, 25, 64, 100, 256, 1000)]
+              + [(r, f) for r in ("sigma", "winsorized") for f in BORDER_FS]
               + [("sigma", 4000), ("winsorized", 2000)])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rejection,F", CUDA_CASES)
 def test_cuda_kernel_matches_plain(cuda_device, monkeypatch, rejection, F):
-    p = 8192 + 77 if F <= 1000 else 1024 + 77
+    p = 8192 + 77 if F <= 1025 else 1024 + 77
     vals = frames_from_numpy(make_vals(F, p) if F >= 4 else
                              np.random.default_rng(F).integers(
                                  0, 65536, (F, p)).astype(np.uint16), cuda_device)
     lo, hi = SIGS[rejection]
-    scratch = rs.pick_tile(F, rejection) is None
-    assert scratch == (F > 1000)
+    scratch = F > 1025
     if scratch:
+        # winsorized at F = 2000 fits in shared memory: no shared memory
+        # at all sends it to the scratch path
+        if rejection == "winsorized":
+            monkeypatch.setattr(rs, "SMEM_LIMIT", 0)
         # 256 pixels a launch: the scratch path runs in five launches
         monkeypatch.setattr(rs, "SCRATCH_BYTES",
-                            2 * rs._SLABS.get(rejection, 1) * F * 256)
+                            rs.launch_plan(rejection, F, 256).scratch_bytes)
+    plan = rs.launch_plan(rejection, F, p)
+    assert plan.scratch == scratch
+    assert plan.chunk == (256 if scratch else p)
     before = rs.launches[rejection]
     got = rs.reject_cuda(vals, rejection, lo, hi)
     torch.cuda.synchronize()
@@ -255,12 +290,41 @@ def test_cuda_kernel_matches_plain(cuda_device, monkeypatch, rejection, F):
 
 
 @pytest.mark.cuda
+def test_cuda_launch_plan(cuda_device):
+    """The tiles the C plans choose, where the scratch path begins, and
+    the winsorized kernel's occupancy at F = 1000."""
+    def tile(rejection, f):
+        plan = rs.launch_plan(rejection, f)
+        return None if plan.scratch else plan.tile
+
+    assert tile("sigma", 100) == 128
+    assert tile("sigma", 1000) == 64
+    # winsorized: a warp a pixel, 8 pixels a block while they fit
+    assert tile("winsorized", 1000) == 8
+    assert tile("winsorized", 14000) == 4
+    # past the shared-memory bound the kernels run on a device-memory
+    # scratch copy: no F is refused
+    assert tile("sigma", 3399) == 32
+    assert tile("sigma", 3400) is None
+    assert tile("median", 3632) == 32
+    assert tile("median", 3633) is None
+    assert tile("winsorized", 97000) == 1
+    assert tile("winsorized", 98000) is None
+    assert rs.launch_plan("winsorized", 1000).warps >= 16
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rejection", KERNELS)
 def test_cuda_wrapper_matches_reject_and_mean(cuda_device, rejection):
     vals = frames_from_numpy(make_vals(25, 4096, degen_every=3), cuda_device)
     lo, hi = SIGS[rejection]
     before = rs.launches[rejection]
-    got = rs.reject_stack(vals, rejection, lo, hi, with_counters=True)
+    # the CUDA route makes no host sync, degenerate pixels included
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = rs.reject_stack(vals, rejection, lo, hi, with_counters=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert rs.launches[rejection] == before + 1
     if rejection == "median":
