@@ -10,18 +10,20 @@ exits non-zero without printing a result:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile the CUDA library from siril-0.9_tpu/siriltpu_torch/csrc
    (one nvcc per source, all started together), print what ptxas says of
-   each kernel's registers and spills, and the warps the winsorized
-   kernel keeps resident per SM at F = 1000 (at least 16) and the sigma
-   kernel at F = 100;
+   each kernel's registers and spills (any local memory fails the run),
+   and the warps the winsorized kernel keeps resident per SM at F = 1000
+   (at least 16), the sigma kernel at F = 100 and the percentile and
+   sigmedian kernels at F = 50;
 3. kernels vs plain: each of the five CUDA rejection kernels (sigma,
    median, percentile, sigmedian, winsorized) against its plain PyTorch
    version on the card, bit for bit, for F in {3, 5, 12, 25, 64, 100, 256,
-   1000} (sigma also 7; sigma and winsorized also at the borders of their
-   designs, F in {63, 65, 127, 128, 129, 511, 512, 1024, 1025}) and
-   P = 65536 (outliers at 0 and 60000, real 65535 values, degenerate
-   geomspace columns), and on the device-memory scratch path (sigma at
-   F = 4000, winsorized at F = 2000); then the dispatcher against
-   reject_and_mean (masked_median for median), under
+   1000} (sigma also 7; sigma, percentile, sigmedian and winsorized also
+   at the borders of their designs, F in {31, 32, 33, 63, 65, 127, 128,
+   129, 511, 512, 1024, 1025}) and P = 65536 (outliers at 0 and 60000,
+   real 65535 values, degenerate geomspace columns), and on the
+   device-memory scratch path (sigma at F = 4000; percentile, sigmedian
+   and winsorized at F = 2000 with no shared memory); then the dispatcher
+   against reject_and_mean (masked_median for median), under
    torch.cuda.set_sync_debug_mode("error"), so a host sync fails the run;
 4. register + sigma stack: register_and_stack on a 100 x 4096 x 4096
    uint16 sequence made on the card (shifts in [-20, 20]): exact shifts,
@@ -33,6 +35,9 @@ exits non-zero without printing a result:
 6. config 2: stack_frames on 50 x 1 x 2048 x 2048 frames made on the card
    (shifts in [-20, 20]): the median stack, then the mean stack with sigma
    (3, 3), percentile (0.2, 0.1) and sigmedian (3, 3), no normalization;
+   and the sigma kernel's time at this shape (its 64-wire register sort),
+   and the sigmedian kernel's at sigmas of 50, where no pixel flags (its
+   first pass alone);
 7. config 3: stack_frames(mean, winsorized (3, 3), additive_scaling) on
    1000 x 1 x 480 x 640 frames made on the card (shifts in [-20, 20]),
    with the block loop's time alone and what the exact re-run of the
@@ -68,14 +73,15 @@ DEVICE = "cuda"
 SIZE, NFRAMES, SIG = 4096, 100, 3.0
 CASE_P = 65536
 CASE_FS = (3, 5, 12, 25, 64, 100, 256, 1000)
-#: sigma and winsorized also at the borders of their designs: sigma's
-#: register sort of 32, 64 or 128 wires up to F = 128, winsorized's
-#: 32-slot chunks and mask words
-BORDER_FS = (63, 65, 127, 128, 129, 511, 512, 1024, 1025)
-#: the device-memory scratch path: sigma past its shared-memory bound, and
-#: winsorized at F = 2000 with the shared memory a block may use set to 0
-#: (its bound is F ~ 97k)
-SCRATCH_CASES = (("sigma", 4000), ("winsorized", 2000))
+#: the kernels also run at the borders of their designs: the register
+#: sorts of 32, 64 or 128 wires up to F = 128 (sigma, percentile,
+#: sigmedian), winsorized's 32-slot chunks and mask words
+BORDERED = ("sigma", "percentile", "sigmedian", "winsorized")
+BORDER_FS = (31, 32, 33, 63, 65, 127, 128, 129, 511, 512, 1024, 1025)
+#: the device-memory scratch path: sigma past its shared-memory bound, the
+#: others at F = 2000 with the shared memory a block may use set to 0
+SCRATCH_CASES = (("sigma", 4000), ("percentile", 2000), ("sigmedian", 2000),
+                 ("winsorized", 2000))
 CONFIG2 = (50, 2048, 2048)   # frames, height, width
 CONFIG3 = (1000, 480, 640)
 CHUNK = 1 << 20
@@ -266,10 +272,9 @@ def phase3(rs, rec, dev):
     from siriltpu_torch.ops.rejection import masked_median, reject_and_mean
     from siriltpu_torch.utils.interop import frames_from_numpy
 
-    windowed = ("sigma", "winsorized")
     cases = [(r, f, CASE_P) for r in rs.launches
              for f in sorted(set(CASE_FS) | ({7} if r == "sigma" else set())
-                             | (set(BORDER_FS) if r in windowed else set()))]
+                             | (set(BORDER_FS) if r in BORDERED else set()))]
     cases += [(r, f, CASE_P) for r, f in SCRATCH_CASES]
     smem_limit = rs.SMEM_LIMIT
     for rej, f, p in cases:
@@ -278,7 +283,9 @@ def phase3(rs, rec, dev):
         vals = frames_from_numpy(make_case(f, p, 3 if f == 25 else 97, seed=f), dev)
         if (rej, f) in SCRATCH_CASES:
             rs.SMEM_LIMIT = 0
-        scratch = rs.launch_plan(rej, f, p).scratch
+        plan = rs.launch_plan(rej, f, p)
+        if plan.scratch != ((rej, f) in SCRATCH_CASES):
+            fail(f"{rej} at F={f}: scratch path {plan.scratch}")
         got = rs.reject_cuda(vals, rej, lo, hi)
         torch.cuda.synchronize()
         want = rs.reject_plain(vals, rej, lo, hi)
@@ -297,7 +304,8 @@ def phase3(rs, rec, dev):
         torch.cuda.synchronize()
         ferrs = [max_abs_diff(g, w) for g, w in zip(fin, ref)]
         print(f"phase3 {rej} F={f} P={p} sig=({lo}, {hi}) "
-              f"{'scratch' if scratch else 'shared'} degenerate={int(got[1].sum())} "
+              f"{'scratch' if plan.scratch else f'smem={plan.smem}'} "
+              f"degenerate={int(got[1].sum())} "
               f"kernel-vs-plain max|diff| mean/degen/rejl/rejh={errs} "
               f"final-vs-reject_and_mean={ferrs}", flush=True)
         rec.check(rej, errs + ferrs, f"{rej} kernel at F={f}")
@@ -420,6 +428,28 @@ def exact_cost(rs, card, label, kernel, sig, flat, loop_s):
           f"[{card}]", flush=True)
 
 
+def first_pass_cost(rs, rec, card, flat, k_ms):
+    """The sigmedian kernel at sigmas of 50, where no pixel flags: its
+    first pass, on the registers, alone. The difference to its time at
+    (3, 3), k_ms, is what the pixels that flag cost: their columns written
+    to shared memory, the merge and the later passes, while the other
+    lanes of their warps wait."""
+    import torch
+
+    sig = (50.0, 50.0)
+    got = rs.reject_cuda(flat, "sigmedian", *sig)
+    want = rs.reject_plain(flat, "sigmedian", *sig)
+    torch.cuda.synchronize()
+    rec.check("sigmedian", [max_abs_diff(g, w) for g, w in zip(got, want)],
+              f"sigmedian at sigmas {sig}")
+    nflag = int(got[2].sum()) + int(got[3].sum())
+    ms, _ = cuda_ms(lambda: rs.reject_cuda(flat, "sigmedian", *sig))
+    print(f"timing [{card}] sigmedian kernel at {'x'.join(map(str, flat.shape))}, "
+          f"sigmas {sig} ({nflag} values flagged): {ms:.3f} ms, the first pass "
+          f"alone; the pixels that flag at (3.0, 3.0) add {k_ms - ms:.3f} ms "
+          f"(median of {REPS} warm runs)", flush=True)
+
+
 def stack_config(rs, rec, dev, card, label, frames, shifts, method, rejection,
                  normalize):
     """One stack_frames run of a configuration, held to the plain version;
@@ -486,13 +516,20 @@ def stack_config(rs, rec, dev, card, label, frames, shifts, method, rejection,
               f"{loop_s:.3f} s [{card}]", flush=True)
         if ndeg:
             exact_cost(rs, card, label, kernel, sig, flat, loop_s)
-    if kernel not in rec.ms:
-        k_ms, _ = cuda_ms(lambda: rs.reject_cuda(flat, kernel, *sig))
+    k_ms, _ = cuda_ms(lambda: rs.reject_cuda(flat, kernel, *sig))
+    if kernel in rec.ms:
+        # sigma's own row is the north star's; this shape is the one of the
+        # percentile and sigmedian kernels, whose register sort it shares
+        print(f"timing [{card}] {kernel} kernel at {f}x{h * w}: {k_ms:.3f} ms "
+              f"(median of {REPS} warm runs)", flush=True)
+    else:
         p_ms, _ = cuda_ms(chunked(lambda v: rs.reject_plain(v, kernel, *sig), flat))
         rec.ms[kernel] = (k_ms, p_ms)
         print(f"timing [{card}] {kernel} kernel at {f}x{h * w}: {k_ms:.3f} ms, "
               f"plain version {p_ms:.3f} ms (median of {REPS} warm runs)", flush=True)
         yardsticks(rec, card, kernel, flat)
+    if kernel == "sigmedian":
+        first_pass_cost(rs, rec, card, flat, k_ms)
 
 
 def main() -> int:
@@ -521,15 +558,21 @@ def main() -> int:
     for line in info["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"build: ptxas {line.strip()}")
-    spills = [line for line in info["log"].splitlines()
-              if "spill" in line and " 0 bytes spill stores" not in line]
+    # no kernel keeps anything in local memory: no spills, and no stack
+    # frame (a register array indexed at run time would take one)
+    spills = [line.strip() for line in info["log"].splitlines()
+              if "bytes stack frame" in line and line.strip()
+              != "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"]
     if spills:
-        fail(f"ptxas reports spills: {spills}")
+        fail(f"ptxas reports local memory: {spills}")
 
-    plans = {k: rs.launch_plan(k, f) for k, f in (("winsorized", 1000), ("sigma", 100))}
+    plans = {k: rs.launch_plan(k, f) for k, f in (
+        ("winsorized", 1000), ("sigma", 100), ("percentile", 50), ("sigmedian", 50))}
     print(f"occupancy: resident warps per SM {({k: v.warps for k, v in plans.items()})} "
           f"(winsorized at F = 1000 with {plans['winsorized'].tile} pixels a block, "
-          f"sigma at F = 100 with {plans['sigma'].tile})", flush=True)
+          f"sigma at F = 100, percentile and sigmedian at F = 50; pixels a block "
+          f"and shared memory {({k: (v.tile, v.smem) for k, v in plans.items()})})",
+          flush=True)
     if plans["winsorized"].warps < MIN_WARPS_F1000:
         fail(f"winsorized keeps {plans['winsorized'].warps} warps per SM at F = 1000")
     rec = Record(rs.launches)

@@ -13,17 +13,20 @@
 // rejection counts.
 //
 // Who owns a pixel:
-// - median, percentile and sigmedian (reject_kernel below): one thread a
-//   pixel column. It copies the column's F values from device memory once,
-//   sorts them with a pruned bitonic network in shared memory and runs its
-//   rejection on the sorted column; neighbouring threads own neighbouring
-//   pixels, so every frame row is read by coalesced 2-byte loads. The
-//   column lives in shared memory at stride `tile` (F * tile * 2 bytes a
-//   block), or in a device-memory scratch laid out (F, P) when
-//   even tile 32 does not fit in the 227 KB a block may use;
-// - sigma (reject_sigma.cu): one thread a pixel as well, but for F <= 128
-//   the column is sorted in registers by a network unrolled at compile
-//   time, and written to shared memory once for the clip passes;
+// - median, and percentile and sigmedian past F = 128 (reject_kernel
+//   below): one thread a pixel column. It copies the column's F values from
+//   device memory once, sorts them with a pruned bitonic network in shared
+//   memory and runs its rejection on the sorted column; neighbouring
+//   threads own neighbouring pixels, so every frame row is read by
+//   coalesced 2-byte loads. The column lives in shared memory at stride
+//   `tile` (F * tile * 2 bytes a block), or in a device-memory scratch laid
+//   out (F, P) when even tile 32 does not fit in the 227 KB a block may use;
+// - sigma (reject_sigma.cu), and percentile and sigmedian up to F = 128
+//   (wire_kernel below): one thread a pixel as well, but the column is
+//   sorted in registers by a network unrolled at compile time (Wires).
+//   Percentile runs its whole clip on the registers; sigmedian runs its
+//   first pass there and writes the column to shared memory only for a
+//   pixel that pass flags; sigma writes it there once for its clip passes;
 // - winsorized (reject_winsorized.cu): a warp a pixel (a team of 32
 //   lanes), which sorts the column together in shared memory and splits
 //   every fixed-point step and clip scan across its lanes.
@@ -68,14 +71,171 @@ constexpr int64_t kMaxSmemBytes = 232448;
 // Frame counts from here on sum in int64.
 constexpr int64_t kWideFrames = 16384;
 
+// The low and high flag counts of a clip pass.
+struct Flags {
+  int low, high;
+};
+
 // One pixel's column: element i at p[i * stride]. S is int for a column in
 // shared memory and int64_t for one in the device-memory scratch.
+//
+// A sorted column, in memory (Column) or in registers (Wires), is read by
+// the bodies through one interface: at(k), the k-th value; each(lo, hi,
+// fn), fn(i, value) for every i in [lo, hi); flags(f, low, high), the
+// counts of values among the first f that the predicate `low` holds for
+// (it holds on a prefix of [0, 65535]) and that `high` holds for (on a
+// suffix).
 template <typename S>
 struct Column {
   uint16_t* p;
   S stride;
   __device__ __forceinline__ uint16_t& operator[](int i) const {
     return p[static_cast<S>(i) * stride];
+  }
+  __device__ __forceinline__ int32_t at(int i) const { return (*this)[i]; }
+  template <class Fn>
+  __device__ __forceinline__ void each(int lo, int hi, Fn fn) const {
+    for (int i = lo; i < hi; ++i) fn(i, at(i));
+  }
+  // the flags are a prefix and a suffix of the sorted column: scans in
+  // from both ends
+  template <class Low, class High>
+  __device__ __forceinline__ Flags flags(int f, Low low, High high) const {
+    Flags fl{0, 0};
+    while (fl.low < f && low(at(fl.low))) ++fl.low;
+    while (fl.high < f && high(at(f - 1 - fl.high))) ++fl.high;
+    return fl;
+  }
+};
+
+// ------------------------------------------------------ register columns
+//
+// A column of F <= W values sorted in W / 2 registers of one thread, two
+// uint16 wires a register (W = 32, 64 or 128, pads at 65535): wire w lives
+// in half w / H of register w % H (H = W / 2). Every loop over the
+// registers has a constant trip count and is unrolled, so every register
+// index is a compile-time constant and nothing goes to local memory.
+
+// Launch bound of the register kernels; tile is 32, 64 or 128.
+constexpr int kThreads = 128;
+
+// Blocks of kThreads an SM should hold (0: no bound) for the register sort
+// of W wires (W == 0: sigma's shared-memory or scratch sort), which bounds
+// ptxas's registers a thread. With no bound ptxas spills sigma at W = 32
+// and on its shared-memory and scratch sorts; with any bound it spills
+// sigma at W = 128 or gives W = 64 more registers than it needs, and runs
+// slower, and a bound of 7 or 8 blocks spills sigmedian at W = 64. With
+// these none spills: at W = 32, 64 and 128 sigma takes 91, 72 and 166
+// registers, percentile 54, 54 and 84, sigmedian 79, 90 and 146.
+constexpr int min_blocks(int w) { return w == 64 || w == 128 ? 0 : 4; }
+
+// One compare-exchange stage of the bitonic sort of W uint16 wires, then
+// the next stages: K is the size of the bitonic sequences being merged, J
+// the distance of the wires compared. One __vminu2 / __vmaxu2 pair does the
+// two compare-exchanges of registers r and r ^ J at once. Where the two
+// halves go opposite ways (K == H) a byte permute puts each minimum in
+// place; J == H compares the two halves of one register.
+template <int W, int K, int J>
+struct BitonicStage {
+  static constexpr int H = W / 2;
+  static __device__ __forceinline__ void run(uint32_t (&v)[H]) {
+    if constexpr (J == H) {
+      // only at K == W, ascending: wire r against wire r + H
+#pragma unroll
+      for (int r = 0; r < H; ++r) {
+        const uint32_t a = v[r], swapped = __byte_perm(a, 0u, 0x1032);
+        v[r] = __byte_perm(__vminu2(a, swapped), __vmaxu2(a, swapped), 0x7610);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < H; ++r) {
+        const int l = r ^ J;
+        if (l > r) {
+          const uint32_t lo = __vminu2(v[r], v[l]), hi = __vmaxu2(v[r], v[l]);
+          if constexpr (K == H) {
+            // half 0 ascending, half 1 descending
+            v[r] = __byte_perm(lo, hi, 0x7610);
+            v[l] = __byte_perm(hi, lo, 0x7610);
+          } else {
+            // both halves go one way: K < H, or K == W (all ascending)
+            const bool up = (r & K) == 0;
+            v[r] = up ? lo : hi;
+            v[l] = up ? hi : lo;
+          }
+        }
+      }
+    }
+    if constexpr (J > 1) {
+      BitonicStage<W, K, J / 2>::run(v);
+    } else if constexpr (K < W) {
+      BitonicStage<W, 2 * K, K>::run(v);
+    }
+  }
+};
+
+// Load the column of pixel px (F values at row stride ld) into the wires,
+// pads (and every wire of a thread that is not `live`) at 65535, and sort
+// them: the full bitonic network of W = 2H wires.
+template <int H>
+__device__ __forceinline__ void load_sorted(uint32_t (&v)[H], const uint16_t* __restrict__ vals,
+                                            int64_t ld, int64_t px, int f, bool live) {
+  auto load = [&](int i) -> uint32_t { return live && i < f ? vals[i * ld + px] : 0xffffu; };
+#pragma unroll
+  for (int r = 0; r < H; ++r) v[r] = load(r) | load(r + H) << 16;
+  BitonicStage<2 * H, 2, 1>::run(v);
+}
+
+// The sorted wires as the bodies read them (the interface of Column).
+template <int H>
+struct Wires {
+  const uint32_t (&v)[H];
+
+  // the k-th smallest value, k < 2H, by compare-and-select over the
+  // registers
+  __device__ __forceinline__ int32_t at(int k) const {
+    const int r = k & (H - 1);
+    uint32_t word = v[0];
+#pragma unroll
+    for (int i = 1; i < H; ++i) word = r == i ? v[i] : word;
+    return static_cast<int32_t>(k < H ? word & 0xffffu : word >> 16);
+  }
+  // wire w, for a w known at compile time (an unrolled loop's index)
+  __device__ __forceinline__ int32_t wire(int w) const {
+    return static_cast<int32_t>(w < H ? v[w] & 0xffffu : v[w - H] >> 16);
+  }
+  template <class Fn>
+  __device__ __forceinline__ void each(int lo, int hi, Fn fn) const {
+#pragma unroll
+    for (int w = 0; w < 2 * H; ++w)
+      if (w >= lo && w < hi) fn(w, wire(w));
+  }
+  // scans in from both ends, each over one half of the registers, then the
+  // other: nvcc leaves a loop of 128 steps with an early exit rolled (and
+  // the registers in local memory), and one of 64 unrolled
+  template <class Low, class High>
+  __device__ __forceinline__ Flags flags(int f, Low low, High high) const {
+    Flags fl{0, 0};
+    if (scan_half<false, true>(f, low, fl.low)) scan_half<true, true>(f, low, fl.low);
+    if (scan_half<true, false>(f, high, fl.high)) scan_half<false, false>(f, high, fl.high);
+    return fl;
+  }
+  // Add to n the wires w < f of one half (kHi: the upper halves, wires H
+  // and up) that pred holds for, up (kUp) or down, until the first it
+  // fails for; false if the scan ended there. Going up, w == f ends it;
+  // going down, the pads w >= f are passed over.
+  template <bool kHi, bool kUp, class Pred>
+  __device__ __forceinline__ bool scan_half(int f, Pred pred, int& n) const {
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const int w = (kUp ? i : H - 1 - i) + (kHi ? H : 0);
+      if (w >= f) {
+        if (kUp) return false;
+        continue;
+      }
+      if (!pred(wire(w))) return false;
+      ++n;
+    }
+    return true;
   }
 };
 
@@ -140,15 +300,27 @@ __device__ __forceinline__ float median_of(int32_t v1, int32_t v2) {
   return 0.5f * (static_cast<float>(v1) + static_cast<float>(v2));
 }
 
-// round_to_WORD of the exact mean of col[lo..hi).
-template <typename Acc, class C>
-__device__ __forceinline__ int32_t window_mean(const C& col, int lo, int hi) {
-  const Acc n = hi - lo;
-  Acc s = 0;
-  for (int i = lo; i < hi; ++i) s += col[i];
+// round_to_WORD of the exact mean s / n: (2s + n) / (2n), clipped to
+// [0, 65535]; 0 for n == 0.
+template <typename Acc>
+__device__ __forceinline__ int32_t round_mean(Acc s, Acc n) {
   Acc m = n > 0 ? (2 * s + n) / (2 * n) : 0;
   m = m < 0 ? 0 : (m > 65535 ? 65535 : m);
   return static_cast<int32_t>(m);
+}
+
+// The exact sum of the values lo..hi-1 of a sorted column (Column or Wires).
+template <typename Acc, class C>
+__device__ __forceinline__ Acc sum_of(const C& col, int lo, int hi) {
+  Acc s = 0;
+  col.each(lo, hi, [&](int, int32_t v) { s += v; });
+  return s;
+}
+
+// round_to_WORD of the exact mean of col[lo..hi).
+template <typename Acc, class C>
+__device__ __forceinline__ int32_t window_mean(const C& col, int lo, int hi) {
+  return round_mean<Acc>(sum_of<Acc>(col, lo, hi), hi - lo);
 }
 
 // The low and high flag counts of sigma clipping on the sorted window
@@ -156,10 +328,6 @@ __device__ __forceinline__ int32_t window_mean(const C& col, int lo, int hi) {
 // med - (v - shift) > thr_low, and with (v - shift) - med > thr_high. Both
 // predicates are monotone in v, so the flags are a prefix and a suffix of
 // the window, counted by scans in from both ends.
-struct Flags {
-  int low, high;
-};
-
 template <class C>
 __device__ __forceinline__ Flags sigma_flags(const C& col, int lo, int hi, float med,
                                              float thr_low, float thr_high, int32_t shift) {
@@ -319,11 +487,7 @@ template <typename Acc, class C, class Set>
 __device__ __forceinline__ int32_t team_mean(const C& x, const Set& s, int n) {
   Acc sum = 0;
   s.for_each([&](int i) { sum += x[i]; });
-  sum = warp_sum(sum);
-  const Acc nn = n;
-  Acc m = nn > 0 ? (2 * sum + nn) / (2 * nn) : 0;
-  m = m < 0 ? 0 : (m > 65535 ? 65535 : m);
-  return static_cast<int32_t>(m);
+  return round_mean<Acc>(warp_sum(sum), n);
 }
 
 // The winsorization fixed point of one outer pass, on the set's values of
@@ -539,6 +703,38 @@ Plan thread_plan(int64_t f, int64_t tile, bool scratch, int64_t p) {
   if (!scratch) return {reject_kernel<Body, false, int32_t>, t, t, f * tile * 2, 0};
   if (f < kWideFrames) return {reject_kernel<Body, true, int32_t>, t, t, 0, f * p * 2};
   return {reject_kernel<Body, true, int64_t>, t, t, 0, f * p * 2};
+}
+
+// A thread a pixel with its column of F <= W sorted in registers:
+// Body::wires(w, x, f, siglow, sighigh) -> Result, on the sorted wires w,
+// with x the thread's column in shared memory at stride tile + 2 (an odd
+// number of words, so a warp's lanes touch 32 different banks) for a body
+// that needs one (Body::kColumn).
+template <class Body, int W>
+__global__ void __launch_bounds__(kThreads, min_blocks(W))
+    wire_kernel(const uint16_t* __restrict__ vals, int64_t ld, uint16_t* __restrict__,
+                Outputs out, int f, int64_t p, float siglow, float sighigh) {
+  extern __shared__ uint16_t slab[];
+  const int64_t px = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (px >= p) return;
+  uint32_t v[W / 2];
+  load_sorted(v, vals, ld, px, f, true);
+  const Column<int> x{slab + threadIdx.x, static_cast<int>(blockDim.x) + 2};
+  out.write(px, Body::wires(Wires<W / 2>{v}, x, f, siglow, sighigh));
+}
+
+// F <= 128 on the register sort of 32, 64 or 128 wires, with F * (tile + 2)
+// * 2 bytes of shared memory a block where Body::kColumn, else none; larger
+// F, and the scratch path, as thread_plan.
+template <class Body>
+Plan wire_plan(int64_t f, int64_t tile, bool scratch, int64_t p) {
+  if (scratch || f > 128 || (tile != 32 && tile != 64 && tile != 128))
+    return thread_plan<Body>(f, tile, scratch, p);
+  const int t = static_cast<int>(tile);
+  const KernelFn k = f <= 32   ? wire_kernel<Body, 32>
+                     : f <= 64 ? wire_kernel<Body, 64>
+                               : wire_kernel<Body, 128>;
+  return {k, t, t, Body::kColumn ? f * (tile + 2) * 2 : 0, 0};
 }
 
 // Launch a plan over p pixels on `stream`. vals is (F, p) with row stride

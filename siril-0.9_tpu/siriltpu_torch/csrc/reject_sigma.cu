@@ -22,7 +22,8 @@
 //   neighbouring threads, neighbouring pixels) into W / 2 registers, two
 //   uint16 wires a register, W = 32, 64 or 128 wires with pads at 65535,
 //   and sorts them with the full bitonic network of W wires unrolled at
-//   compile time (every register index a constant, so nothing goes to
+//   compile time (load_sorted in reject_common.cuh, shared with percentile
+//   and sigmedian; every register index a constant, so nothing goes to
 //   local memory), one __vminu2 / __vmaxu2 pair for two compare-exchanges:
 //   ALU work, no shared memory. It then writes the sorted column to shared
 //   memory once (F stores) for the clip passes, which read the median and
@@ -48,53 +49,6 @@ namespace {
 
 using namespace siriltpu;
 
-// One compare-exchange stage of the bitonic sort of W uint16 wires, then
-// the next stages: K is the size of the bitonic sequences being merged, J
-// the distance of the wires compared. Wire w lives in half w / H of
-// register w % H (H = W / 2), so one __vminu2 / __vmaxu2 pair does the two
-// compare-exchanges of registers r and r ^ J at once. Where the two halves
-// go opposite ways (K == H) a byte permute puts each minimum in place;
-// J == H compares the two halves of one register. Each loop has a
-// constant trip count and is unrolled, so every index is a compile-time
-// constant.
-template <int W, int K, int J>
-struct BitonicStage {
-  static constexpr int H = W / 2;
-  static __device__ __forceinline__ void run(uint32_t (&v)[H]) {
-    if constexpr (J == H) {
-      // only at K == W, ascending: wire r against wire r + H
-#pragma unroll
-      for (int r = 0; r < H; ++r) {
-        const uint32_t a = v[r], swapped = __byte_perm(a, 0u, 0x1032);
-        v[r] = __byte_perm(__vminu2(a, swapped), __vmaxu2(a, swapped), 0x7610);
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < H; ++r) {
-        const int l = r ^ J;
-        if (l > r) {
-          const uint32_t lo = __vminu2(v[r], v[l]), hi = __vmaxu2(v[r], v[l]);
-          if constexpr (K == H) {
-            // half 0 ascending, half 1 descending
-            v[r] = __byte_perm(lo, hi, 0x7610);
-            v[l] = __byte_perm(hi, lo, 0x7610);
-          } else {
-            // both halves go one way: K < H, or K == W (all ascending)
-            const bool up = (r & K) == 0;
-            v[r] = up ? lo : hi;
-            v[l] = up ? hi : lo;
-          }
-        }
-      }
-    }
-    if constexpr (J > 1) {
-      BitonicStage<W, K, J / 2>::run(v);
-    } else if constexpr (K < W) {
-      BitonicStage<W, 2 * K, K>::run(v);
-    }
-  }
-};
-
 // The windowed sigma clip of one thread's sorted column.
 template <typename Acc, class C>
 __device__ __forceinline__ Result sigma_window(const C& x, int f, float siglow,
@@ -112,16 +66,6 @@ __device__ __forceinline__ Result sigma_window(const C& x, int f, float siglow,
   }
   return {window_mean<Acc>(x, win.lo, win.hi), win.degen, win.lo, f - win.hi};
 }
-
-constexpr int kThreads = 128;  // launch bound; tile is 32, 64 or 128
-
-// Blocks of kThreads an SM should hold (0: no bound), which bounds ptxas's
-// registers a thread. With no bound ptxas spills at W = 32 and on the
-// shared-memory and scratch sorts; with any bound it spills at W = 128 or
-// gives W = 64 more registers than it needs, and runs slower. With these
-// none spills: W = 128 takes 166 registers (12 warps an SM), W = 64 72
-// (28 warps).
-constexpr int min_blocks(int w) { return w == 64 || w == 128 ? 0 : 4; }
 
 // W > 0: the register sort of W wires (F <= W); W == 0: the shared-memory
 // or scratch sort.
@@ -152,11 +96,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(W))
   }
   if constexpr (W > 0) {
     constexpr int H = W / 2;
-    auto load = [&](int i) -> uint32_t { return live && i < f ? vals[i * ld + px] : 0xffffu; };
     uint32_t v[H];
-#pragma unroll
-    for (int r = 0; r < H; ++r) v[r] = load(r) | load(r + H) << 16;
-    BitonicStage<W, 2, 1>::run(v);
+    load_sorted(v, vals, ld, px, f, live);
 #pragma unroll
     for (int r = 0; r < H; ++r) {
       if (live && r < f) x[r] = static_cast<uint16_t>(v[r] & 0xffffu);

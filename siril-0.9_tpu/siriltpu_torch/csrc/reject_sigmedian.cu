@@ -21,8 +21,24 @@
 // below the replacement move down, those at or above it move up, and the
 // replacements fill the gap.
 //
-// What bounds it on an H100: the first sort in shared memory, then one
-// O(F) statistics pass and one O(F) merge per pass.
+// What bounds it on an H100: the kernel must read F*P*2 bytes once (0.14
+// ms at config 2's 50 x 2048^2); the sort is the work, then one O(F)
+// statistics pass and one O(F) merge a pass. A first design sorted in
+// shared memory (see reject_percentile.cu): 2.3 ms.
+//
+// The design here, one thread a pixel:
+// - F <= 128 (wire_kernel in reject_common.cuh): the column sorted in
+//   registers (load_sorted), and the first pass on the registers: the
+//   median and the anchor by selects over the wires, the exact sd sums by
+//   a predicated add over them, the flags by scans in from both ends
+//   (Wires::flags). A pixel that pass flags nothing (most of them), or
+//   with F <= 3, takes its mean from the wires and never touches shared
+//   memory. Any other pixel writes its column to shared memory once, at
+//   stride tile + 2, replaces and merges there, and runs its later passes
+//   there, as the first design does; its warp's other lanes wait. On
+//   config 2's data nearly every warp holds such a pixel (PERF.md);
+// - larger F, or the scratch: the first design (thread_plan), every pass
+//   on the column in shared memory or the scratch.
 
 #include "reject_common.cuh"
 
@@ -30,42 +46,100 @@ namespace {
 
 using namespace siriltpu;
 
+// round_to_WORD of the median: the value that replaces the flagged ones.
+__device__ __forceinline__ int32_t replacement(float median) {
+  const float mr = floorf(median + 0.5f);
+  return static_cast<int32_t>(median <= 0.0f ? 0.0f : (median > 65535.0f ? 65535.0f : mr));
+}
+
+// The median and the flag counts of one pass on the sorted column x (a
+// Column or Wires) of f values.
+template <typename Acc, class C>
+__device__ __forceinline__ Flags sigmedian_flags(const C& x, int f, float siglow, float sighigh,
+                                                 float& median) {
+  const int32_t anchor = x.at(f / 2);
+  const float med = median_of(x.at((f - 1) / 2), anchor);
+  SdSums<Acc> sums;
+  x.each(0, f, [&](int, int32_t v) { sums.add(v - anchor); });
+  const float sigma = sums.sd(f);
+  const float thr_low = siglow * sigma, thr_high = sighigh * sigma;
+  median = med;
+  return x.flags(
+      f, [&](int32_t v) { return med - static_cast<float>(v) > thr_low; },
+      [&](int32_t v) { return static_cast<float>(v) - med > thr_high; });
+}
+
+// Replace the flagged values of the sorted column x in memory (its first
+// fl.low and last fl.high) by medw, and merge so that x stays sorted.
+template <class C>
+__device__ __forceinline__ void replace_merge(const C& x, int f, Flags fl, uint16_t medw) {
+  const int nlow = fl.low, nhigh = fl.high;
+  if (nlow + nhigh >= f) {
+    for (int i = 0; i < f; ++i) x[i] = medw;
+    return;
+  }
+  // the unflagged middle is x[nlow .. f - nhigh), sorted
+  const int mid_end = f - nhigh;
+  int below = 0;
+  while (nlow + below < mid_end && x[nlow + below] < medw) ++below;
+  for (int i = 0; i < below; ++i) x[i] = x[nlow + i];
+  for (int i = mid_end - 1; i >= nlow + below; --i) x[i + nhigh] = x[i];
+  for (int i = below; i < below + nlow + nhigh; ++i) x[i] = medw;
+}
+
+// One pass on the sorted column x in memory: the flags, added to the
+// counters, and the replacement. False once the clip is done: the pass
+// flagged nothing, or F <= 3.
+template <typename Acc, class C>
+__device__ __forceinline__ bool sigmedian_pass(const C& x, int f, float siglow, float sighigh,
+                                               int& rl, int& rh) {
+  float median;
+  const Flags fl = sigmedian_flags<Acc>(x, f, siglow, sighigh, median);
+  rl += fl.low;
+  rh += fl.high;
+  if (fl.low + fl.high == 0) return false;
+  replace_merge(x, f, fl, static_cast<uint16_t>(replacement(median)));
+  return f > 3;
+}
+
 struct SigmedianBody {
+  // the register path writes a flagged pixel's column to shared memory
+  static constexpr bool kColumn = true;
+
+  // Every pass on the sorted column in memory.
   template <typename Acc, class C>
   static __device__ Result run(const C& x, int f, float siglow, float sighigh) {
     int rl = 0, rh = 0;
-    for (int it = 0; it < kMaxIters; ++it) {
-      const float median = median_of(x[(f - 1) / 2], x[f / 2]);
-      const int32_t anchor = x[f / 2];
-      SdSums<Acc> sums;
-      for (int i = 0; i < f; ++i) sums.add(static_cast<int32_t>(x[i]) - anchor);
-      const float sigma = sums.sd(f);
-      const Flags fl = sigma_flags(x, 0, f, median, siglow * sigma, sighigh * sigma, 0);
-      const int nlow = fl.low, nhigh = fl.high;
-      rl += nlow;
-      rh += nhigh;
-      if (nlow + nhigh == 0) break;
-
-      const float mr = floorf(median + 0.5f);
-      const uint16_t medw =
-          static_cast<uint16_t>(median <= 0.0f ? 0.0f : (median > 65535.0f ? 65535.0f : mr));
-      if (nlow + nhigh >= f) {
-        for (int i = 0; i < f; ++i) x[i] = medw;
-      } else {
-        // the unflagged middle is x[nlow .. f - nhigh), sorted
-        const int mid_end = f - nhigh;
-        int below = 0;
-        while (nlow + below < mid_end && x[nlow + below] < medw) ++below;
-        for (int i = 0; i < below; ++i) x[i] = x[nlow + i];
-        for (int i = mid_end - 1; i >= nlow + below; --i) x[i + nhigh] = x[i];
-        for (int i = below; i < below + nlow + nhigh; ++i) x[i] = medw;
-      }
-      if (f <= 3) break;
+    for (int it = 0; it < kMaxIters && sigmedian_pass<Acc>(x, f, siglow, sighigh, rl, rh); ++it) {
     }
     return {window_mean<Acc>(x, 0, f), 0, rl, rh};
+  }
+
+  // The first pass on the sorted wires w; the later ones on x.
+  template <int H>
+  static __device__ Result wires(const Wires<H>& w, const Column<int>& x, int f, float siglow,
+                                 float sighigh) {
+    float median;
+    const Flags fl = sigmedian_flags<int32_t>(w, f, siglow, sighigh, median);
+    const int nlow = fl.low, nhigh = fl.high, nrep = nlow + nhigh;
+    if (nrep == 0) return {window_mean<int32_t>(w, 0, f), 0, 0, 0};
+    const int32_t medw = replacement(median);
+    if (f <= 3) {
+      // the last pass: the mean of the replaced column
+      const int32_t s = nrep >= f ? f * medw : sum_of<int32_t>(w, nlow, f - nhigh) + nrep * medw;
+      return {round_mean<int32_t>(s, f), 0, nlow, nhigh};
+    }
+    // the column, written once, then the replacement as in memory
+    w.each(0, f, [&](int i, int32_t v) { x[i] = static_cast<uint16_t>(v); });
+    replace_merge(x, f, fl, static_cast<uint16_t>(medw));
+    int rl = nlow, rh = nhigh;
+    for (int it = 1; it < kMaxIters && sigmedian_pass<int32_t>(x, f, siglow, sighigh, rl, rh);
+         ++it) {
+    }
+    return {window_mean<int32_t>(x, 0, f), 0, rl, rh};
   }
 };
 
 }  // namespace
 
-SIRILTPU_REJECT_ENTRY(sigmedian, thread_plan<SigmedianBody>, kThreadTiles)
+SIRILTPU_REJECT_ENTRY(sigmedian, wire_plan<SigmedianBody>, kThreadTiles)

@@ -11,10 +11,11 @@ sorted column it holds (``exact_masked`` in ``csrc/reject_common.cuh``).
 So a CUDA stack is one launch per span of pixels and no host sync.
 
 How the kernels own pixels (the C plans, ``csrc/reject_<name>.cu``):
-median, percentile and sigmedian give each pixel a thread and its column
-a stride of shared memory; sigma too, but it sorts a column of F <= 128
-in registers; winsorized gives each pixel a warp, ``tile`` pixels a
-block. Each kernel's C plan is the one place its layout is written down:
+median gives each pixel a thread and its column a stride of shared
+memory; sigma, percentile and sigmedian do so too, but sort a column of
+F <= 128 in registers (percentile then needs no shared memory at all);
+winsorized gives each pixel a warp, ``tile`` pixels a block. Each
+kernel's C plan is the one place its layout is written down:
 ``launch_plan`` asks it for the largest tile whose shared memory fits in
 the 227 KB a block may use, or, where none fits, for the device-memory
 scratch copy the kernel works on instead, so every F runs on the card.

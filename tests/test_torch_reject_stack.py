@@ -35,7 +35,7 @@ def make_vals(f: int, p: int, seed: int = 0, degen_every: int = 31) -> np.ndarra
     rng = np.random.default_rng(500 + f + seed)
     vals = rng.integers(800, 1200, size=(f, p)).astype(np.uint16)
     vals[1, ::4] = 60000
-    vals[3, 2::7] = 0
+    vals[min(3, f - 1), 2::7] = 0
     vals[:2, ::11] = 65535
     for c in range(0, p, degen_every):
         vals[:, c] = np.geomspace(1, 65535, f).astype(np.uint16)
@@ -71,9 +71,17 @@ SIGS = {"sigma": (2.5, 2.5), "median": (0.0, 0.0), "percentile": (0.2, 0.1),
         "sigmedian": (3.0, 3.0), "winsorized": (2.5, 2.5)}
 
 
-@pytest.mark.parametrize("F", [12, 25, 64])
-@pytest.mark.parametrize("rejection", ["median", "percentile", "sigmedian",
-                                       "winsorized"])
+#: (rejection, F): the other four Pallas branches at F in {12, 25, 64};
+#: percentile and sigmedian also at the borders of their register sorts of
+#: 32, 64 and 128 wires (F <= 128) and at F = 3, the last F whose sigmedian
+#: stops after one pass
+FUSED_CASES = ([(r, f) for f in (12, 25, 64)
+                for r in ("median", "percentile", "sigmedian", "winsorized")]
+               + [(r, f) for f in (3, 33, 65, 129)
+                  for r in ("percentile", "sigmedian")])
+
+
+@pytest.mark.parametrize("rejection,F", FUSED_CASES)
 def test_cpu_route_matches_pallas_interpret_fused(rejection, F):
     """The other four Pallas branches. The data needs fewer than 50 clip
     passes and fixed-point steps a pixel, so the Pallas pass cap of 50
@@ -82,10 +90,11 @@ def test_cpu_route_matches_pallas_interpret_fused(rejection, F):
 
     from siriltpu.ops.pallas.reject_stack import reject_stack_pallas
 
-    vals = make_vals(F, 256)
+    vals = make_vals(F, 256 if F <= 64 else 128)
     lo, hi = SIGS[rejection]
-    want = reject_stack_pallas(jnp.asarray(vals), rejection, lo, hi, tile=256,
-                               interpret=True, with_counters=True)
+    want = reject_stack_pallas(jnp.asarray(vals), rejection, lo, hi,
+                               tile=vals.shape[1], interpret=True,
+                               with_counters=True)
     got = rs.reject_stack(frames_from_numpy(vals, "cpu"), rejection, lo, hi,
                           with_counters=True)
     for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
@@ -251,13 +260,18 @@ def cuda_device():
 #: (rejection, F) cases on the card: every kernel at F in {2, ..., 1000};
 #: sigma and winsorized also at the borders of their designs (sigma's
 #: register sort of 32, 64 or 128 wires up to F = 128, winsorized's
-#: 32-slot chunks and mask words); and past the shared-memory bound (the
+#: 32-slot chunks and mask words); percentile and sigmedian at the borders
+#: of their register sorts; and past the shared-memory bound (the
 #: device-memory scratch path)
+CASE_FS = (2, 3, 5, 12, 25, 64, 100, 256, 1000)
 BORDER_FS = (63, 65, 127, 128, 129, 511, 512, 1024, 1025)
-CUDA_CASES = ([(r, f) for r in KERNELS
-               for f in (2, 3, 5, 12, 25, 64, 100, 256, 1000)]
+WIRE_BORDER_FS = (31, 32, 33, 63, 64, 65, 127, 128, 129)
+CUDA_CASES = ([(r, f) for r in KERNELS for f in CASE_FS]
               + [(r, f) for r in ("sigma", "winsorized") for f in BORDER_FS]
-              + [("sigma", 4000), ("winsorized", 2000)])
+              + [(r, f) for r in ("percentile", "sigmedian")
+                 for f in WIRE_BORDER_FS if f not in CASE_FS]
+              + [(r, 4000) for r in ("sigma", "percentile", "sigmedian")]
+              + [("winsorized", 2000)])
 
 
 @pytest.mark.cuda
@@ -291,13 +305,21 @@ def test_cuda_kernel_matches_plain(cuda_device, monkeypatch, rejection, F):
 
 @pytest.mark.cuda
 def test_cuda_launch_plan(cuda_device):
-    """The tiles the C plans choose, where the scratch path begins, and
-    the winsorized kernel's occupancy at F = 1000."""
+    """The tiles the C plans choose, the shared memory of the register
+    sorts, where the scratch path begins, and the winsorized kernel's
+    occupancy at F = 1000."""
     def tile(rejection, f):
         plan = rs.launch_plan(rejection, f)
         return None if plan.scratch else plan.tile
 
     assert tile("sigma", 100) == 128
+    # percentile runs its whole body in registers up to F = 128: no shared
+    # memory; sigmedian keeps a column a thread for the pixels it flags
+    for f in (50, 128):
+        plan = rs.launch_plan("percentile", f)
+        assert (plan.tile, plan.smem, plan.scratch) == (128, 0, False)
+    assert rs.launch_plan("percentile", 129).smem == 129 * 128 * 2
+    assert rs.launch_plan("sigmedian", 50).smem == 50 * 130 * 2
     assert tile("sigma", 1000) == 64
     # winsorized: a warp a pixel, 8 pixels a block while they fit
     assert tile("winsorized", 1000) == 8
@@ -334,3 +356,25 @@ def test_cuda_wrapper_matches_reject_and_mean(cuda_device, rejection):
     want = trej.reject_and_mean(vals, rejection, (lo, hi))
     for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
         np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [3, 50, 128])
+@pytest.mark.parametrize("flags", ["all", "none"])
+def test_cuda_sigmedian_first_pass_exits(cuda_device, flags, F):
+    """Both exits of the sigmedian register path's first pass: negative
+    sigmas flag every value of every column (nlow + nhigh >= F: the whole
+    column becomes the replacement), and sigmas of 50 flag none (the mean
+    comes straight from the registers)."""
+    sig = -1.0 if flags == "all" else 50.0
+    vals = frames_from_numpy(make_vals(F, 4096), cuda_device)
+    got = rs.reject_cuda(vals, "sigmedian", sig, sig)
+    torch.cuda.synchronize()
+    want = rs.reject_plain(vals, "sigmedian", sig, sig)
+    for name, g, w in zip(("mean", "degen", "rejl", "rejh"), got, want):
+        np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=name)
+    nflag = _ints(got[2]) + _ints(got[3])
+    if flags == "all":
+        assert (nflag >= F).all()
+    else:
+        assert (nflag == 0).all()
