@@ -9,8 +9,9 @@ exits non-zero without printing a result:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile the CUDA library from siril-0.9_tpu/siriltpu_torch/csrc
-   (one nvcc per source, all started together), print what ptxas says of
-   each kernel's registers and spills (any local memory fails the run),
+   (one nvcc per source, all started together; anew even where it is
+   already built), print what ptxas says of each kernel entry's registers
+   and spills (any local memory, or a source with no entry, fails the run),
    and the warps the winsorized kernel keeps resident per SM at F = 1000
    (at least 16), the sigma kernel at F = 100 and the percentile and
    sigmedian kernels at F = 50;
@@ -429,11 +430,10 @@ def exact_cost(rs, card, label, kernel, sig, flat, loop_s):
 
 
 def first_pass_cost(rs, rec, card, flat, k_ms):
-    """The sigmedian kernel at sigmas of 50, where no pixel flags: its
-    first pass, on the registers, alone. The difference to its time at
-    (3, 3), k_ms, is what the pixels that flag cost: their columns written
-    to shared memory, the merge and the later passes, while the other
-    lanes of their warps wait."""
+    """The sigmedian kernel at sigmas of 50, where no pixel flags: the
+    sort and its first pass alone. The difference to its time at (3, 3),
+    k_ms, is what the pixels that flag cost: the merge and the later
+    passes, while the other lanes of their warps wait."""
     import torch
 
     sig = (50.0, 50.0)
@@ -550,21 +550,33 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    info = build.build()
+    # compiled anew even where a library is already built, so that ptxas's
+    # lines for every kernel entry are there to check
+    info = build.build(force=True)
     build.library()
     print(f"build: {info['path'].name} built={info['built']} "
           f"nvcc {info['seconds']:.2f} s, total {time.perf_counter() - t0:.2f} s",
           flush=True)
-    for line in info["log"].splitlines():
+    log = info["log"].splitlines()
+    for line in log:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"build: ptxas {line.strip()}")
     # no kernel keeps anything in local memory: no spills, and no stack
-    # frame (a register array indexed at run time would take one)
-    spills = [line.strip() for line in info["log"].splitlines()
-              if "bytes stack frame" in line and line.strip()
-              != "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"]
+    # frame (a register array indexed at run time would take one); every
+    # source has entries, and every entry its stack frame line
+    entries = [line for line in log if "Compiling entry" in line]
+    frames = [line.strip() for line in log if "bytes stack frame" in line]
+    missing = [k for k in build.KERNELS
+               if not any(f"reject_{k}_cu" in line for line in entries)]
+    if missing or len(frames) != len(entries):
+        fail(f"ptxas reports {len(entries)} kernel entries and {len(frames)} "
+             f"stack frame lines, none for {missing}")
+    spills = [line for line in frames
+              if line != "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"]
     if spills:
         fail(f"ptxas reports local memory: {spills}")
+    print(f"build: ptxas checked {len(entries)} kernel entries: no local memory",
+          flush=True)
 
     plans = {k: rs.launch_plan(k, f) for k, f in (
         ("winsorized", 1000), ("sigma", 100), ("percentile", 50), ("sigmedian", 50))}

@@ -24,9 +24,8 @@
 // - sigma (reject_sigma.cu), and percentile and sigmedian up to F = 128
 //   (wire_kernel below): one thread a pixel as well, but the column is
 //   sorted in registers by a network unrolled at compile time (Wires).
-//   Percentile runs its whole clip on the registers; sigmedian runs its
-//   first pass there and writes the column to shared memory only for a
-//   pixel that pass flags; sigma writes it there once for its clip passes;
+//   Percentile runs its whole clip on the registers; sigma and sigmedian
+//   write the sorted column to shared memory once for their clip passes;
 // - winsorized (reject_winsorized.cu): a warp a pixel (a team of 32
 //   lanes), which sorts the column together in shared memory and splits
 //   every fixed-point step and clip scan across its lanes.
@@ -124,9 +123,9 @@ constexpr int kThreads = 128;
 // ptxas's registers a thread. With no bound ptxas spills sigma at W = 32
 // and on its shared-memory and scratch sorts; with any bound it spills
 // sigma at W = 128 or gives W = 64 more registers than it needs, and runs
-// slower, and a bound of 7 or 8 blocks spills sigmedian at W = 64. With
-// these none spills: at W = 32, 64 and 128 sigma takes 91, 72 and 166
-// registers, percentile 54, 54 and 84, sigmedian 79, 90 and 146.
+// slower. With these none spills: at W = 32, 64 and 128 sigma takes 91,
+// 72 and 166 registers, percentile 54, 54 and 84, sigmedian 80, 55 and
+// 118.
 constexpr int min_blocks(int w) { return w == 64 || w == 128 ? 0 : 4; }
 
 // One compare-exchange stage of the bitonic sort of W uint16 wires, then
@@ -705,11 +704,11 @@ Plan thread_plan(int64_t f, int64_t tile, bool scratch, int64_t p) {
   return {reject_kernel<Body, true, int64_t>, t, t, 0, f * p * 2};
 }
 
-// A thread a pixel with its column of F <= W sorted in registers:
-// Body::wires(w, x, f, siglow, sighigh) -> Result, on the sorted wires w,
-// with x the thread's column in shared memory at stride tile + 2 (an odd
-// number of words, so a warp's lanes touch 32 different banks) for a body
-// that needs one (Body::kColumn).
+// A thread a pixel with its column of F <= W sorted in registers, then
+// Body::run<int32_t>(x, f, siglow, sighigh) -> Result: on the sorted wires,
+// or, for a body that keeps a column in memory (Body::kColumn), on the
+// wires written once to shared memory at stride tile + 2 (an odd number of
+// words, so a warp's lanes touch 32 different banks).
 template <class Body, int W>
 __global__ void __launch_bounds__(kThreads, min_blocks(W))
     wire_kernel(const uint16_t* __restrict__ vals, int64_t ld, uint16_t* __restrict__,
@@ -719,8 +718,14 @@ __global__ void __launch_bounds__(kThreads, min_blocks(W))
   if (px >= p) return;
   uint32_t v[W / 2];
   load_sorted(v, vals, ld, px, f, true);
-  const Column<int> x{slab + threadIdx.x, static_cast<int>(blockDim.x) + 2};
-  out.write(px, Body::wires(Wires<W / 2>{v}, x, f, siglow, sighigh));
+  const Wires<W / 2> w{v};
+  if constexpr (Body::kColumn) {
+    const Column<int> x{slab + threadIdx.x, static_cast<int>(blockDim.x) + 2};
+    w.each(0, f, [&](int i, int32_t val) { x[i] = static_cast<uint16_t>(val); });
+    out.write(px, Body::template run<int32_t>(x, f, siglow, sighigh));
+  } else {
+    out.write(px, Body::template run<int32_t>(w, f, siglow, sighigh));
+  }
 }
 
 // F <= 128 on the register sort of 32, 64 or 128 wires, with F * (tile + 2)

@@ -63,12 +63,6 @@ struct PercentileBody {
     }
     return {window_mean<Acc>(x, lo, hi), 0, fl.low, fl.high};
   }
-
-  template <int H>
-  static __device__ Result wires(const Wires<H>& w, const Column<int>&, int f, float plow,
-                                 float phigh) {
-    return run<int32_t>(w, f, plow, phigh);
-  }
 };
 
 }  // namespace

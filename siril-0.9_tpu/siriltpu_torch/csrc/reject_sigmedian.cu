@@ -28,15 +28,11 @@
 //
 // The design here, one thread a pixel:
 // - F <= 128 (wire_kernel in reject_common.cuh): the column sorted in
-//   registers (load_sorted), and the first pass on the registers: the
-//   median and the anchor by selects over the wires, the exact sd sums by
-//   a predicated add over them, the flags by scans in from both ends
-//   (Wires::flags). A pixel that pass flags nothing (most of them), or
-//   with F <= 3, takes its mean from the wires and never touches shared
-//   memory. Any other pixel writes its column to shared memory once, at
-//   stride tile + 2, replaces and merges there, and runs its later passes
-//   there, as the first design does; its warp's other lanes wait. On
-//   config 2's data nearly every warp holds such a pixel (PERF.md);
+//   registers as sigma does (load_sorted), written to shared memory once
+//   at stride tile + 2, and every pass there. A first pass on the
+//   registers, with a column written only for a pixel it flags, took more
+//   registers and was slower: on config 2's data nearly every warp holds
+//   such a pixel (PERF.md);
 // - larger F, or the scratch: the first design (thread_plan), every pass
 //   on the column in shared memory or the scratch.
 
@@ -52,8 +48,8 @@ __device__ __forceinline__ int32_t replacement(float median) {
   return static_cast<int32_t>(median <= 0.0f ? 0.0f : (median > 65535.0f ? 65535.0f : mr));
 }
 
-// The median and the flag counts of one pass on the sorted column x (a
-// Column or Wires) of f values.
+// The median and the flag counts of one pass on the sorted column x of f
+// values.
 template <typename Acc, class C>
 __device__ __forceinline__ Flags sigmedian_flags(const C& x, int f, float siglow, float sighigh,
                                                  float& median) {
@@ -103,7 +99,7 @@ __device__ __forceinline__ bool sigmedian_pass(const C& x, int f, float siglow, 
 }
 
 struct SigmedianBody {
-  // the register path writes a flagged pixel's column to shared memory
+  // the register path writes every sorted column to shared memory
   static constexpr bool kColumn = true;
 
   // Every pass on the sorted column in memory.
@@ -113,30 +109,6 @@ struct SigmedianBody {
     for (int it = 0; it < kMaxIters && sigmedian_pass<Acc>(x, f, siglow, sighigh, rl, rh); ++it) {
     }
     return {window_mean<Acc>(x, 0, f), 0, rl, rh};
-  }
-
-  // The first pass on the sorted wires w; the later ones on x.
-  template <int H>
-  static __device__ Result wires(const Wires<H>& w, const Column<int>& x, int f, float siglow,
-                                 float sighigh) {
-    float median;
-    const Flags fl = sigmedian_flags<int32_t>(w, f, siglow, sighigh, median);
-    const int nlow = fl.low, nhigh = fl.high, nrep = nlow + nhigh;
-    if (nrep == 0) return {window_mean<int32_t>(w, 0, f), 0, 0, 0};
-    const int32_t medw = replacement(median);
-    if (f <= 3) {
-      // the last pass: the mean of the replaced column
-      const int32_t s = nrep >= f ? f * medw : sum_of<int32_t>(w, nlow, f - nhigh) + nrep * medw;
-      return {round_mean<int32_t>(s, f), 0, nlow, nhigh};
-    }
-    // the column, written once, then the replacement as in memory
-    w.each(0, f, [&](int i, int32_t v) { x[i] = static_cast<uint16_t>(v); });
-    replace_merge(x, f, fl, static_cast<uint16_t>(medw));
-    int rl = nlow, rh = nhigh;
-    for (int it = 1; it < kMaxIters && sigmedian_pass<int32_t>(x, f, siglow, sighigh, rl, rh);
-         ++it) {
-    }
-    return {window_mean<int32_t>(x, 0, f), 0, rl, rh};
   }
 };
 

@@ -83,12 +83,14 @@ def _run_all(cmds):
     return "".join(outs)
 
 
-def build() -> dict:
-    """Compile the library unless it is already built. Returns the path,
-    whether it was compiled now, the seconds it took and nvcc's output
-    (``-Xptxas -v``: registers and shared memory of each kernel)."""
+def build(force: bool = False) -> dict:
+    """Compile the library unless it is already built (``force``: compile
+    it all the same, so that nvcc's output is there to read). Returns the
+    path, whether it was compiled now, the seconds it took and nvcc's
+    output (``-Xptxas -v``: registers, spills and stack frame of each
+    kernel entry)."""
     out = library_path()
-    if out.is_file():
+    if out.is_file() and not force:
         return {"path": out, "built": False, "seconds": 0.0, "log": ""}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

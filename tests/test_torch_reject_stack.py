@@ -314,7 +314,8 @@ def test_cuda_launch_plan(cuda_device):
 
     assert tile("sigma", 100) == 128
     # percentile runs its whole body in registers up to F = 128: no shared
-    # memory; sigmedian keeps a column a thread for the pixels it flags
+    # memory; sigmedian writes its sorted column there, a thread at stride
+    # tile + 2
     for f in (50, 128):
         plan = rs.launch_plan("percentile", f)
         assert (plan.tile, plan.smem, plan.scratch) == (128, 0, False)
@@ -362,10 +363,10 @@ def test_cuda_wrapper_matches_reject_and_mean(cuda_device, rejection):
 @pytest.mark.parametrize("F", [3, 50, 128])
 @pytest.mark.parametrize("flags", ["all", "none"])
 def test_cuda_sigmedian_first_pass_exits(cuda_device, flags, F):
-    """Both exits of the sigmedian register path's first pass: negative
-    sigmas flag every value of every column (nlow + nhigh >= F: the whole
-    column becomes the replacement), and sigmas of 50 flag none (the mean
-    comes straight from the registers)."""
+    """Both ends of the sigmedian clip's first pass on the register sort:
+    negative sigmas flag every value of every column (nlow + nhigh >= F:
+    the whole column becomes the replacement), and sigmas of 50 flag none
+    (the first pass is the last)."""
     sig = -1.0 if flags == "all" else 50.0
     vals = frames_from_numpy(make_vals(F, 4096), cuda_device)
     got = rs.reject_cuda(vals, "sigmedian", sig, sig)
