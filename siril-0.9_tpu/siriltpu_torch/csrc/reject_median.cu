@@ -11,10 +11,19 @@
 // the C assignment does. There is no clip loop, so the degenerate flag and
 // both counters are 0.
 //
-// What bounds it on an H100: the per-column sort in shared memory, as in
-// reject_sigma.cu; the kernel reads F*P*2 bytes once. Only the two middle
-// order statistics are needed, so a selection would do less work than
-// the full sort: later work.
+// What bounds it on an H100: the kernel must read F*P*2 bytes once (0.42
+// GB at config 2's 50 x 2048^2, 0.14 ms at 3.35 TB/s); the sort is the
+// work. A first design sorted in shared memory with a pruned bitonic
+// network, two loads and two stores a compare-exchange (~2,000
+// shared-memory instructions a pixel at F = 50): bound by shared-memory
+// instructions, 1.8 ms.
+//
+// The design here, one thread a pixel:
+// - F <= 128 (wire_kernel in reject_common.cuh): the column sorted in
+//   registers as sigma does (load_sorted), and the two middle order
+//   statistics read off the wires by two selects. No shared memory, so the
+//   registers alone set the occupancy;
+// - larger F, or the scratch: the first design (thread_plan).
 
 #include "reject_common.cuh"
 
@@ -23,9 +32,13 @@ namespace {
 using namespace siriltpu;
 
 struct MedianBody {
+  // the whole body runs on the registers: no shared memory
+  static constexpr bool kColumn = false;
+
+  // On a sorted Column or Wires.
   template <typename Acc, class C>
   static __device__ Result run(const C& x, int f, float, float) {
-    const float med = median_of(x[(f - 1) / 2], x[f / 2]);
+    const float med = median_of(x.at((f - 1) / 2), x.at(f / 2));
     const int32_t m = static_cast<int32_t>(fminf(fmaxf(med, 0.0f), 65535.0f));
     return {m, 0, 0, 0};
   }
@@ -33,4 +46,4 @@ struct MedianBody {
 
 }  // namespace
 
-SIRILTPU_REJECT_ENTRY(median, thread_plan<MedianBody>, kThreadTiles)
+SIRILTPU_REJECT_ENTRY(median, wire_plan<MedianBody>, kThreadTiles)
