@@ -75,14 +75,14 @@ SIZE, NFRAMES, SIG = 4096, 100, 3.0
 CASE_P = 65536
 CASE_FS = (3, 5, 12, 25, 64, 100, 256, 1000)
 #: the kernels also run at the borders of their designs: the register
-#: sorts of 32, 64 or 128 wires up to F = 128 (sigma, percentile,
+#: sorts of 32, 64 or 128 wires up to F = 128 (sigma, median, percentile,
 #: sigmedian), winsorized's 32-slot chunks and mask words
-BORDERED = ("sigma", "percentile", "sigmedian", "winsorized")
+BORDERED = ("sigma", "median", "percentile", "sigmedian", "winsorized")
 BORDER_FS = (31, 32, 33, 63, 65, 127, 128, 129, 511, 512, 1024, 1025)
 #: the device-memory scratch path: sigma past its shared-memory bound, the
 #: others at F = 2000 with the shared memory a block may use set to 0
-SCRATCH_CASES = (("sigma", 4000), ("percentile", 2000), ("sigmedian", 2000),
-                 ("winsorized", 2000))
+SCRATCH_CASES = (("sigma", 4000), ("median", 2000), ("percentile", 2000),
+                 ("sigmedian", 2000), ("winsorized", 2000))
 CONFIG2 = (50, 2048, 2048)   # frames, height, width
 CONFIG3 = (1000, 480, 640)
 CHUNK = 1 << 20
@@ -532,7 +532,20 @@ def stack_config(rs, rec, dev, card, label, frames, shifts, method, rejection,
         first_pass_cost(rs, rec, card, flat, k_ms)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--phases", default="", metavar="N,N",
+        help="run only these of the phases 3 to 8, after the device and "
+             "build phases (to compare two trees in one call); such a run "
+             "prints its timing lines and no result")
+    args = parser.parse_args(argv)
+    only = {int(n) for n in args.phases.split(",") if n}
+
+    def wanted(*phases):
+        return not only or bool(only & set(phases))
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -579,36 +592,46 @@ def main() -> int:
           flush=True)
 
     plans = {k: rs.launch_plan(k, f) for k, f in (
-        ("winsorized", 1000), ("sigma", 100), ("percentile", 50), ("sigmedian", 50))}
+        ("winsorized", 1000), ("sigma", 100), ("median", 50), ("percentile", 50),
+        ("sigmedian", 50))}
     print(f"occupancy: resident warps per SM {({k: v.warps for k, v in plans.items()})} "
           f"(winsorized at F = 1000 with {plans['winsorized'].tile} pixels a block, "
-          f"sigma at F = 100, percentile and sigmedian at F = 50; pixels a block "
+          f"sigma at F = 100, median, percentile and sigmedian at F = 50; pixels a block "
           f"and shared memory {({k: (v.tile, v.smem) for k, v in plans.items()})})",
           flush=True)
     if plans["winsorized"].warps < MIN_WARPS_F1000:
         fail(f"winsorized keeps {plans['winsorized'].warps} warps per SM at F = 1000")
     rec = Record(rs.launches)
     # ---- 3. every kernel vs its plain version
-    phase3(rs, rec, dev)
-    print(f"phase3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    if wanted(3):
+        phase3(rs, rec, dev)
+        print(f"phase3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 4-5. register + sigma stack, and its timing
-    phase4_5(rs, rec, dev, card)
-    torch.cuda.empty_cache()
-    print(f"phase5 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    if wanted(4, 5):
+        phase4_5(rs, rec, dev, card)
+        torch.cuda.empty_cache()
+        print(f"phase5 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 6. config 2: median and mean stacks of 50 x 2048 x 2048
-    frames, shifts = make_frames(*CONFIG2, seed=2, dev=dev)
-    for method, rejection in (("median", "none"), ("mean", "sigma"),
-                              ("mean", "percentile"), ("mean", "sigmedian")):
-        stack_config(rs, rec, dev, card, "phase6", frames, shifts, method,
-                     rejection, "none")
-    del frames
-    torch.cuda.empty_cache()
-    print(f"phase6 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    if wanted(6):
+        frames, shifts = make_frames(*CONFIG2, seed=2, dev=dev)
+        for method, rejection in (("median", "none"), ("mean", "sigma"),
+                                  ("mean", "percentile"), ("mean", "sigmedian")):
+            stack_config(rs, rec, dev, card, "phase6", frames, shifts, method,
+                         rejection, "none")
+        del frames
+        torch.cuda.empty_cache()
+        print(f"phase6 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 7. config 3: winsorized mean stack of 1000 x 480 x 640
-    frames, shifts = make_frames(*CONFIG3, seed=3, dev=dev)
-    stack_config(rs, rec, dev, card, "phase7", frames, shifts, "mean",
-                 "winsorized", "additive_scaling")
-    print(f"phase7 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    if wanted(7):
+        frames, shifts = make_frames(*CONFIG3, seed=3, dev=dev)
+        stack_config(rs, rec, dev, card, "phase7", frames, shifts, "mean",
+                     "winsorized", "additive_scaling")
+        del frames
+        torch.cuda.empty_cache()
+        print(f"phase7 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    if only:
+        print(f"chip_smoke: phases {sorted(only)} only: no result", flush=True)
+        return 0
 
     kernels = {"kernels": [{
         "name": f"reject_{k}", "route": "cuda",

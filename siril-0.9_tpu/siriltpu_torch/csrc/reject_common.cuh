@@ -133,8 +133,10 @@ constexpr int min_blocks(int w) { return w == 64 || w == 128 ? 0 : 4; }
 // the distance of the wires compared. One __vminu2 / __vmaxu2 pair does the
 // two compare-exchanges of registers r and r ^ J at once. Where the two
 // halves go opposite ways (K == H) a byte permute puts each minimum in
-// place; J == H compares the two halves of one register.
-template <int W, int K, int J>
+// place; J == H compares the two halves of one register. The stages run up
+// to the merge of sequences of KEnd wires: KEnd == W sorts all the wires,
+// KEnd == W / 2 leaves wires [0, H) ascending and [H, W) descending.
+template <int W, int K, int J, int KEnd = W>
 struct BitonicStage {
   static constexpr int H = W / 2;
   static __device__ __forceinline__ void run(uint32_t (&v)[H]) {
@@ -165,9 +167,9 @@ struct BitonicStage {
       }
     }
     if constexpr (J > 1) {
-      BitonicStage<W, K, J / 2>::run(v);
-    } else if constexpr (K < W) {
-      BitonicStage<W, 2 * K, K>::run(v);
+      BitonicStage<W, K, J / 2, KEnd>::run(v);
+    } else if constexpr (K < KEnd) {
+      BitonicStage<W, 2 * K, K, KEnd>::run(v);
     }
   }
 };

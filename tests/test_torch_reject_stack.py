@@ -260,17 +260,17 @@ def cuda_device():
 #: (rejection, F) cases on the card: every kernel at F in {2, ..., 1000};
 #: sigma and winsorized also at the borders of their designs (sigma's
 #: register sort of 32, 64 or 128 wires up to F = 128, winsorized's
-#: 32-slot chunks and mask words); percentile and sigmedian at the borders
-#: of their register sorts; and past the shared-memory bound (the
+#: 32-slot chunks and mask words); median, percentile and sigmedian at the
+#: borders of their register sorts; and past the shared-memory bound (the
 #: device-memory scratch path)
 CASE_FS = (2, 3, 5, 12, 25, 64, 100, 256, 1000)
 BORDER_FS = (63, 65, 127, 128, 129, 511, 512, 1024, 1025)
 WIRE_BORDER_FS = (31, 32, 33, 63, 64, 65, 127, 128, 129)
 CUDA_CASES = ([(r, f) for r in KERNELS for f in CASE_FS]
               + [(r, f) for r in ("sigma", "winsorized") for f in BORDER_FS]
-              + [(r, f) for r in ("percentile", "sigmedian")
+              + [(r, f) for r in ("median", "percentile", "sigmedian")
                  for f in WIRE_BORDER_FS if f not in CASE_FS]
-              + [(r, 4000) for r in ("sigma", "percentile", "sigmedian")]
+              + [(r, 4000) for r in ("sigma", "median", "percentile", "sigmedian")]
               + [("winsorized", 2000)])
 
 
@@ -313,13 +313,14 @@ def test_cuda_launch_plan(cuda_device):
         return None if plan.scratch else plan.tile
 
     assert tile("sigma", 100) == 128
-    # percentile runs its whole body in registers up to F = 128: no shared
-    # memory; sigmedian writes its sorted column there, a thread at stride
-    # tile + 2
-    for f in (50, 128):
-        plan = rs.launch_plan("percentile", f)
-        assert (plan.tile, plan.smem, plan.scratch) == (128, 0, False)
-    assert rs.launch_plan("percentile", 129).smem == 129 * 128 * 2
+    # the median and percentile run their whole bodies in registers up to
+    # F = 128: no shared memory; sigmedian writes its sorted column there, a
+    # thread at stride tile + 2
+    for rejection in ("median", "percentile"):
+        for f in (50, 128):
+            plan = rs.launch_plan(rejection, f)
+            assert (plan.tile, plan.smem, plan.scratch) == (128, 0, False)
+        assert rs.launch_plan(rejection, 129).smem == 129 * 128 * 2
     assert rs.launch_plan("sigmedian", 50).smem == 50 * 130 * 2
     assert tile("sigma", 1000) == 64
     # winsorized: a warp a pixel, 8 pixels a block while they fit
