@@ -13,17 +13,17 @@ exits non-zero without printing a result:
    already built), print what ptxas says of each kernel entry's registers
    and spills (any local memory, or a source with no entry, fails the run),
    and the warps the winsorized kernel keeps resident per SM at F = 1000
-   (at least 16), the sigma kernel at F = 100 and the percentile and
-   sigmedian kernels at F = 50;
+   (at least 16), the sigma kernel at F = 100 and the median, percentile
+   and sigmedian kernels at F = 50;
 3. kernels vs plain: each of the five CUDA rejection kernels (sigma,
    median, percentile, sigmedian, winsorized) against its plain PyTorch
    version on the card, bit for bit, for F in {3, 5, 12, 25, 64, 100, 256,
-   1000} (sigma also 7; sigma, percentile, sigmedian and winsorized also
-   at the borders of their designs, F in {31, 32, 33, 63, 65, 127, 128,
-   129, 511, 512, 1024, 1025}) and P = 65536 (outliers at 0 and 60000,
-   real 65535 values, degenerate geomspace columns), and on the
-   device-memory scratch path (sigma at F = 4000; percentile, sigmedian
-   and winsorized at F = 2000 with no shared memory); then the dispatcher
+   1000} (sigma also 7) and at the borders of their designs, F in {31,
+   32, 33, 63, 65, 127, 128, 129, 511, 512, 1024, 1025}, at P = 65536
+   (outliers at 0 and 60000, real 65535 values, degenerate geomspace
+   columns), and on the device-memory scratch path (sigma at F = 4000;
+   median, percentile, sigmedian and winsorized at F = 2000 with no
+   shared memory); then the dispatcher
    against reject_and_mean (masked_median for median), under
    torch.cuda.set_sync_debug_mode("error"), so a host sync fails the run;
 4. register + sigma stack: register_and_stack on a 100 x 4096 x 4096
@@ -42,13 +42,35 @@ exits non-zero without printing a result:
 7. config 3: stack_frames(mean, winsorized (3, 3), additive_scaling) on
    1000 x 1 x 480 x 640 frames made on the card (shifts in [-20, 20]),
    with the block loop's time alone and what the exact re-run of the
-   degenerate pixels costs inside the kernel.
+   degenerate pixels costs inside the kernel;
+8. the sequence path, in a temporary directory that is removed at the end:
+   the frames of config 3 written as a mono 16-bit SER file with SerFile,
+   opened with ser_sequence, registered with register_shift_dft on a
+   square central selection (the recovered shifts must equal the generated
+   ones), and stacked with stack_sequence(mean, winsorized (3, 3),
+   additive_scaling), once with the frames read whole and once streamed in
+   row blocks; then the frames of config 2, whose BASELINE definition has
+   no registration: their SER file is opened through a .seq file that
+   holds the generated shifts (read_seqfile), and put through the median
+   stack and the sigma (3, 3) mean stack, whole and streamed. Every
+   result, image and
+   counters, must be bit-equal to stack_frames' result of phases 6-7 on
+   the frames in memory with the generated shifts, and its kernel must
+   have launched. Config 3's .seq file (write_seqfile) must read back with
+   the same shifts, qualities and statistics, and its stack written with
+   write_fits must read back equal. Each run prints its frames/s from the
+   open of the file to the result on the host, with the seconds of its
+   registration, its normalization, its file reads and the rest of its
+   stack, and, streamed, the seconds the main thread waited for the
+   reader: one run each on the host clock, the file fresh in the page
+   cache.
 
 Each stack of phases 6-7 runs once with every launch count set to 0: its
 kernel must have launched, and the image and per-channel counters must be
 bit-equal to the same y-shifted, normalized, x-shifted (F, P) data, built
 here with other code, put through the plain version in 2^20-pixel chunks.
-A second, warm run gives its frames/s. Each kernel's ms and its plain
+A second, warm run gives its frames/s (a stack with normalization runs
+once: its one run is timed). Each kernel's ms and its plain
 version's ms are taken at its configuration's full shape (CUDA events,
 median of 3 warm runs), beside its device-memory bound, the time of
 torch.sort(dim=0) at that shape (a yardstick for the sort alone) and, for
@@ -63,6 +85,8 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -85,6 +109,8 @@ SCRATCH_CASES = (("sigma", 4000), ("median", 2000), ("percentile", 2000),
                  ("sigmedian", 2000), ("winsorized", 2000))
 CONFIG2 = (50, 2048, 2048)   # frames, height, width
 CONFIG3 = (1000, 480, 640)
+#: side of the square central registration selection of phase 8 (config 3)
+SEL3 = 256
 CHUNK = 1 << 20
 REPS = 3
 #: device-memory rate of one H100 SXM (NVIDIA's data sheet), for the bounds
@@ -466,8 +492,10 @@ def stack_config(rs, rec, dev, card, label, frames, shifts, method, rejection,
     kw = dict(device=dev, method=method, shifts=shifts, rejection=rejection,
               sig=sig, normalize=normalize)
     rs.launches.update(dict.fromkeys(rs.launches, 0))
+    t0 = time.perf_counter()
     res = stack_frames(frames, **kw)
     torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
     launches = dict(rs.launches)
     name = f"stack_frames({method}" + (
         f", {rejection} {sig}" if method == "mean" else "") + f", normalize={normalize})"
@@ -496,15 +524,16 @@ def stack_config(rs, rec, dev, card, label, frames, shifts, method, rejection,
     errs += [abs(int(res.rejection_low[0]) - rl), abs(int(res.rejection_high[0]) - rh)]
     ndeg = int(rs.reject_cuda(flat, kernel, *sig)[1].sum())
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    stack_frames(frames, **kw)
-    torch.cuda.synchronize()
-    sec = time.perf_counter() - t0
+    if coeffs is None:
+        t0 = time.perf_counter()
+        stack_frames(frames, **kw)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
     print(f"{label} {name} {f}x{c}x{h}x{w}: launches={launches}, degenerate "
           f"pixels={ndeg}, rejected low={int(res.rejection_low[0])} "
           f"high={int(res.rejection_high[0])}, image+counters vs plain "
-          f"max|diff|={max(errs)}; warm run {sec:.3f} s, {f / sec:.3f} frames/s"
-          f"{norm} [{card}]", flush=True)
+          f"max|diff|={max(errs)}; {'its one' if coeffs is not None else 'warm'} "
+          f"run {sec:.3f} s, {f / sec:.3f} frames/s{norm} [{card}]", flush=True)
     rec.check(kernel, errs, f"{name} vs the plain version")
     if coeffs is not None:
         # the stack stage alone: the block loop with the coefficients given
@@ -530,6 +559,184 @@ def stack_config(rs, rec, dev, card, label, frames, shifts, method, rejection,
         yardsticks(rec, card, kernel, flat)
     if kernel == "sigmedian":
         first_pass_cost(rs, rec, card, flat, k_ms)
+    return res
+
+
+class Clock:
+    """Seconds spent inside wrapped calls, on the main thread and (summed
+    over them) on other threads."""
+
+    def __init__(self):
+        self.main = self.others = 0.0
+        self.lock = threading.Lock()
+
+    def wrap(self, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                with self.lock:
+                    if threading.current_thread() is threading.main_thread():
+                        self.main += dt
+                    else:
+                        self.others += dt
+        return timed
+
+    def take(self):
+        got = self.main, self.others
+        self.main = self.others = 0.0
+        return got
+
+
+def write_ser(path: str, frames) -> float:
+    """Write (F, 1, H, W) uint16 frames on the card as a mono 16-bit SER
+    file; returns the seconds it took."""
+    from siriltpu_torch.core.frame import Frame
+    from siriltpu_torch.io.ser import SerFile
+    from siriltpu_torch.utils.interop import u16_to_numpy
+
+    t0 = time.perf_counter()
+    host = u16_to_numpy(frames)
+    ser = SerFile.create(path, host.shape[3], host.shape[2])
+    for fr in host:
+        ser.write_frame(Frame(fr))
+    ser.write_and_close()
+    return time.perf_counter() - t0
+
+
+def check_seqfile(seq, directory: str, label: str):
+    """The sequence's .seq file reads back with the same frames, shifts,
+    qualities and cached statistics (as %g prints them)."""
+    from siriltpu_torch.io.seqfile import read_seqfile, write_seqfile
+
+    def printed(x):
+        return float(f"{x:g}")
+
+    back = read_seqfile(write_seqfile(seq, directory))
+    if (back.number, back.selnum, back.seqtype) != (seq.number, seq.selnum, seq.seqtype):
+        fail(f"{label}: the .seq file reads back as another sequence")
+    if not np.array_equal(back.reg_shifts(0), seq.reg_shifts(0)):
+        fail(f"{label}: the .seq file reads back with other shifts")
+    # a selection with no pixel over the estimate's threshold has quality NaN
+    if not np.array_equal([printed(r.quality) for r in seq.regparam[0]],
+                          [r.quality for r in back.regparam[0]], equal_nan=True):
+        fail(f"{label}: the .seq file reads back with other qualities")
+    nstats = 0
+    for a, b in zip(seq.imgparam, back.imgparam):
+        if (a.stats is None) != (b.stats is None) or a.incl != b.incl:
+            fail(f"{label}: the .seq file reads back with other image data")
+        if a.stats is not None:
+            nstats += 1
+            for key in ("mean", "median", "sigma", "avgdev", "mad", "sqrtbwmv",
+                        "location", "scale", "min", "max"):
+                if printed(getattr(a.stats, key)) != getattr(b.stats, key):
+                    fail(f"{label}: the .seq file reads back with other {key}")
+    nfinite = int(np.isfinite([r.quality for r in seq.regparam[0]]).sum())
+    print(f"{label} .seq file: {seq.number} frames, their shifts and qualities "
+          f"({nfinite} finite) and {nstats} cached statistics read back equal",
+          flush=True)
+
+
+def sequence_config(rs, rec, dev, card, label, tmp, frames, shifts, side, stacks):
+    """One configuration from a SER file: ``frames`` written to disk, then,
+    once with the frames read whole and once streamed, the file opened,
+    registered on a central ``side`` x ``side`` selection (``side`` None:
+    opened through a .seq file that holds ``shifts`` instead) and put
+    through each of ``stacks``: (method, rejection, normalize, the
+    stack_frames result it must equal). Returns the last sequence and
+    result."""
+    import torch
+    from siriltpu_torch.core.frame import Rect
+    from siriltpu_torch.io.seqfile import read_seqfile, write_seqfile
+    from siriltpu_torch.io.sequence import ser_sequence
+    from siriltpu_torch.registration.translation import register_shift_dft
+    from siriltpu_torch.stacking import api
+
+    f, _, h, w = frames.shape
+    path = os.path.join(tmp, label.replace(" ", "_") + ".ser")
+    wrote = write_ser(path, frames)
+    print(f"{label} {f}x{h}x{w} written as {path} ({os.path.getsize(path)} bytes) "
+          f"in {wrote:.3f} s", flush=True)
+    if side is None:
+        seq = ser_sequence(path)
+        for r, (sx, sy) in zip(seq.ensure_regparam(0), shifts):
+            r.shiftx, r.shifty = int(sx), int(sy)
+        seqfile = write_seqfile(seq, tmp)
+        how = "shifts read from its .seq file"
+    else:
+        sel = Rect((w - side) // 2, (h - side) // 2, side, side)
+        how = "shifts exact"
+    reads, norms = Clock(), Clock()
+    normalization = api.sequence_normalization
+    api.sequence_normalization = norms.wrap(normalization)
+    try:
+        for stream in (False, True):
+            t0 = time.perf_counter()
+            seq = ser_sequence(path) if side is not None else read_seqfile(seqfile)
+            seq.read_frame = reads.wrap(seq.read_frame)
+            seq.read_frame_part = reads.wrap(seq.read_frame_part)
+            if side is not None:
+                register_shift_dft(seq, 0, sel, device=dev)
+            reg_s = time.perf_counter() - t0
+            reg_reads, _ = reads.take()
+            if not np.array_equal(seq.reg_shifts(0), shifts):
+                fail(f"{label}: recovered shifts differ from the generated ones")
+            for method, rejection, normalize, want in stacks:
+                kernel = "median" if method == "median" else rejection
+                rs.launches.update(dict.fromkeys(rs.launches, 0))
+                t0 = time.perf_counter()
+                res = api.stack_sequence(seq, device=dev, method=method,
+                                         rejection=rejection, sig=SIGS[kernel],
+                                         normalize=normalize, stream=stream)
+                stack_s = time.perf_counter() - t0
+                name = (f"stack_sequence({method}, {rejection}, {normalize}, "
+                        f"stream={stream})")
+                rec.count(dict(rs.launches), name, kernel)
+                errs = [int(np.abs(res.data.astype(np.int64) - want.data).max()),
+                        int(np.abs(res.rejection_low - want.rejection_low).max()),
+                        int(np.abs(res.rejection_high - want.rejection_high).max())]
+                rec.check(kernel, errs, f"{label} {name} vs stack_frames")
+                read_main, read_others = reads.take()
+                norm_s, _ = norms.take()
+                waited = (f", the main thread waited {api.stream_stats['wait_s']:.3f} s "
+                          f"for the reader over {api.stream_stats['blocks']} blocks"
+                          if stream else "")
+                print(f"{label} {name}: {how}, launches={dict(rs.launches)}, "
+                      f"image+counters vs stack_frames max|diff|={max(errs)}; "
+                      f"{f / (reg_s + stack_s):.3f} frames/s from the open of the file "
+                      f"(one run, host clock): open and registration {reg_s:.3f} s (file reads "
+                      f"{reg_reads:.3f}), stack {stack_s:.3f} s (normalization "
+                      f"{norm_s:.3f}, its and the stack's file reads on the main "
+                      f"thread {read_main:.3f} and summed over other threads "
+                      f"{read_others:.3f}, the rest "
+                      f"{stack_s - norm_s - (0.0 if stream else read_main):.3f})"
+                      f"{waited} [{card}]", flush=True)
+    finally:
+        api.sequence_normalization = normalization
+    os.unlink(path)
+    torch.cuda.empty_cache()
+    return seq, res
+
+
+def phase8(rs, rec, dev, card, config2, config3):
+    """The sequence path: each configuration is (frames, shifts, stacks)."""
+    from siriltpu_torch.core.frame import Frame
+    from siriltpu_torch.io.fits import read_fits, write_fits
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        seq, res = sequence_config(rs, rec, dev, card, "phase8 config3", tmp,
+                                   *config3[:2], SEL3, config3[2])
+        check_seqfile(seq, tmp, "phase8 config3")
+        out = os.path.join(tmp, "stack.fit")
+        write_fits(out, Frame(res.data))
+        if not np.array_equal(read_fits(out).data, res.data):
+            fail("phase8: the stack written by write_fits reads back different")
+        print(f"phase8 config3 stack written as FITS ({os.path.getsize(out)} "
+              f"bytes) reads back equal", flush=True)
+        sequence_config(rs, rec, dev, card, "phase8 config2", tmp,
+                        *config2[:2], None, config2[2])
 
 
 def main(argv=None) -> int:
@@ -538,8 +745,9 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--phases", default="", metavar="N,N",
         help="run only these of the phases 3 to 8, after the device and "
-             "build phases (to compare two trees in one call); such a run "
-             "prints its timing lines and no result")
+             "build phases (to compare two trees in one call; phase 8 "
+             "brings phases 6 and 7 with it); such a run prints its timing "
+             "lines and no result")
     args = parser.parse_args(argv)
     only = {int(n) for n in args.phases.split(",") if n}
 
@@ -612,23 +820,33 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         print(f"phase5 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 6. config 2: median and mean stacks of 50 x 2048 x 2048
-    if wanted(6):
+    if wanted(6, 8):
         frames, shifts = make_frames(*CONFIG2, seed=2, dev=dev)
-        for method, rejection in (("median", "none"), ("mean", "sigma"),
-                                  ("mean", "percentile"), ("mean", "sigmedian")):
-            stack_config(rs, rec, dev, card, "phase6", frames, shifts, method,
-                         rejection, "none")
+        stacks = [(method, rejection, "none",
+                   stack_config(rs, rec, dev, card, "phase6", frames, shifts,
+                                method, rejection, "none"))
+                  for method, rejection in (("median", "none"), ("mean", "sigma"),
+                                            ("mean", "percentile"),
+                                            ("mean", "sigmedian"))]
+        # phase 8 stacks the median and the sigma mean from the file
+        config2 = frames, shifts, stacks[:2]
         del frames
         torch.cuda.empty_cache()
         print(f"phase6 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 7. config 3: winsorized mean stack of 1000 x 480 x 640
-    if wanted(7):
+    if wanted(7, 8):
         frames, shifts = make_frames(*CONFIG3, seed=3, dev=dev)
-        stack_config(rs, rec, dev, card, "phase7", frames, shifts, "mean",
-                     "winsorized", "additive_scaling")
+        config3 = frames, shifts, [
+            ("mean", "winsorized", "additive_scaling",
+             stack_config(rs, rec, dev, card, "phase7", frames, shifts, "mean",
+                          "winsorized", "additive_scaling"))]
         del frames
         torch.cuda.empty_cache()
         print(f"phase7 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- 8. configs 3 and 2 from SER files: register, stack, write
+    if wanted(8):
+        phase8(rs, rec, dev, card, config2, config3)
+        print(f"phase8 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} only: no result", flush=True)
         return 0

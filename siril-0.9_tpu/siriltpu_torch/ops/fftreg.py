@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from siriltpu_torch.utils.interop import to_float32
+from siriltpu_torch.utils.interop import frames_from_numpy, to_float32
 
 
 def _ref_fft(ref: torch.Tensor) -> torch.Tensor:
@@ -65,4 +65,27 @@ def decode_corr_peak(corr):
     return int(shiftx), int(shifty)
 
 
-__all__ = ["phase_correlate", "decode_corr_peak"]
+def register_shift_frames(ref_sel: np.ndarray, frame_sels: np.ndarray,
+                          chunk: int = 64, *, device):
+    """Host loop: phase-correlate every (S, S) uint16 frame selection
+    against the reference selection on ``device``, ``chunk`` frames at a
+    time. Returns (shiftx (F,), shifty (F,)) int32 arrays."""
+    ref_sel = np.asarray(ref_sel)
+    if ref_sel.shape[0] != ref_sel.shape[1]:
+        raise ValueError("the selection needs to be square for the DFT "
+                         "(registration.c:198)")
+    rf = _ref_fft(frames_from_numpy(ref_sel, device))
+    sx, sy = [], []
+    for s in range(0, len(frame_sels), chunk):
+        bx, by = phase_correlate(
+            rf, frames_from_numpy(np.asarray(frame_sels[s:s + chunk]), device))
+        sx.append(bx)
+        sy.append(by)
+    if not sx:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    # one copy to the host, after the last chunk is queued
+    return (torch.cat(sx).cpu().numpy().astype(np.int32),
+            torch.cat(sy).cpu().numpy().astype(np.int32))
+
+
+__all__ = ["phase_correlate", "register_shift_frames", "decode_corr_peak"]

@@ -210,5 +210,14 @@ def quality_estimate_batch(layers: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.cat(qs))
 
 
-__all__ = ["quality_estimate", "quality_estimate_batch",
+def normalize_quality(qualities: np.ndarray) -> np.ndarray:
+    """normalizeQualityData (registration.c:163-176): (q - min)/(max - min)."""
+    q = np.asarray(qualities, dtype=np.float64)
+    qmin, qmax = np.nanmin(q), np.nanmax(q)
+    if qmax == qmin:
+        return np.zeros_like(q)
+    return (q - qmin) / (qmax - qmin)
+
+
+__all__ = ["quality_estimate", "quality_estimate_batch", "normalize_quality",
            "QUALTYPE_NORMAL", "QUALTYPE_NINOX"]

@@ -1,8 +1,12 @@
 """What crosses between siriltpu and the port, and uint16 at the boundary.
 
 There are no learned weights in this system: what the two packages
-exchange is data — (F, H, W) uint16 frames, (F, 2) int32 shifts and the
-(siglow, sighigh) pair. Tests hand both packages the same seeded NumPy
+exchange is data — (F, H, W) uint16 frames, (F, 2) int32 shifts, the
+(siglow, sighigh) pair, and a sequence's state: its registration data,
+selection and cached statistics. On disk that state is the ``.seq`` file
+beside the SER or FITS files, which either package reads and writes; in
+memory it crosses as a dict of plain fields (``sequence_to_fields``,
+``sequence_from_fields``). Tests hand both packages the same seeded NumPy
 frames through these helpers.
 
 torch's op support for ``torch.uint16`` is thin (arithmetic and
@@ -16,6 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from siriltpu_torch.core.frame import Frame, ImStats, ImgParam, RegData
 
 
 def u16_to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -57,5 +63,69 @@ def shifts_to_numpy(sx: torch.Tensor, sy: torch.Tensor) -> np.ndarray:
                     axis=1).astype(np.int32)
 
 
+#: a sequence's scalar fields, its per-frame registration columns and the
+#: numeric fields of its cached statistics, as the dict form lists them
+SEQUENCE_SCALARS = ("seqname", "seqtype", "beg", "end", "number", "selnum",
+                    "fixed", "reference_image", "nb_layers", "rx", "ry", "ext",
+                    "seq_dir")
+REG_COLUMNS = ("shiftx", "shifty", "rot_centre_x", "rot_centre_y", "angle",
+               "fwhm", "quality")
+STATS_COLUMNS = ("total", "ngoodpix", "mean", "median", "sigma", "avgdev",
+                 "mad", "sqrtbwmv", "bgnoise", "min", "max", "location",
+                 "scale", "norm_value")
+
+
+def sequence_to_fields(seq) -> dict:
+    """The plain fields of a ``Sequence`` of either package, as a dict of
+    scalars and NumPy arrays: the scalars of ``SEQUENCE_SCALARS``;
+    ``filenum`` (N,) int64, ``incl`` (N,) bool and ``date_obs`` (a list);
+    ``reg``, a dict from layer to an (N, 7) float64 array of
+    ``REG_COLUMNS``; ``stats``, an (N, 14) float64 array of
+    ``STATS_COLUMNS`` with NaN rows for the frames without cached
+    statistics, and their ``layername`` (a list)."""
+    fields = {k: getattr(seq, k) for k in SEQUENCE_SCALARS}
+    fields["filenum"] = np.array([p.filenum for p in seq.imgparam], np.int64)
+    fields["incl"] = np.array([bool(p.incl) for p in seq.imgparam], bool)
+    fields["date_obs"] = [p.date_obs for p in seq.imgparam]
+    fields["reg"] = {
+        layer: np.array([[getattr(r, c) for c in REG_COLUMNS] for r in reg],
+                        np.float64).reshape(len(reg), len(REG_COLUMNS))
+        for layer, reg in seq.regparam.items()}
+    fields["stats"] = np.array(
+        [[np.nan] * len(STATS_COLUMNS) if p.stats is None
+         else [getattr(p.stats, c) for c in STATS_COLUMNS]
+         for p in seq.imgparam], np.float64).reshape(-1, len(STATS_COLUMNS))
+    fields["layername"] = [None if p.stats is None else p.stats.layername
+                           for p in seq.imgparam]
+    return fields
+
+
+def sequence_from_fields(fields: dict, frames=None):
+    """The port's ``Sequence`` with the state ``sequence_to_fields`` took
+    from a sequence of either package. A ``ser`` or ``regular`` sequence
+    reads its files under ``seq_dir``; an ``internal`` one takes its
+    ``frames``, (C, H, W) uint16 arrays."""
+    from siriltpu_torch.io.sequence import Sequence
+
+    seq = Sequence(**{k: fields[k] for k in SEQUENCE_SCALARS})
+    for i, num in enumerate(fields["filenum"]):
+        row = fields["stats"][i]
+        stats = None
+        if not np.isnan(row).all():
+            vals = {c: float(v) for c, v in zip(STATS_COLUMNS, row)}
+            vals["total"], vals["ngoodpix"] = int(row[0]), int(row[1])
+            stats = ImStats(layername=fields["layername"][i], **vals)
+        seq.imgparam.append(ImgParam(filenum=int(num), incl=bool(fields["incl"][i]),
+                                     stats=stats, date_obs=fields["date_obs"][i]))
+    for layer, rows in fields["reg"].items():
+        seq.regparam[int(layer)] = [
+            RegData(int(r[0]), int(r[1]), *(float(v) for v in r[2:])) for r in rows]
+    if frames is not None:
+        seq.internal_frames = [Frame(np.asarray(fr)) for fr in frames]
+    return seq
+
+
 __all__ = ["u16_to_i32", "to_float32", "i32_to_u16", "frames_from_numpy",
-           "u16_to_numpy", "shifts_to_numpy"]
+           "u16_to_numpy", "shifts_to_numpy", "sequence_to_fields",
+           "sequence_from_fields", "SEQUENCE_SCALARS", "REG_COLUMNS",
+           "STATS_COLUMNS"]

@@ -240,7 +240,9 @@ def test_port_imports_without_jax_or_siriltpu():
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'siriltpu')]\n"
         "assert not bad, bad\n"
         "for m in ('pipelines.register_stack', 'stacking.api', 'ops.stats',\n"
-        "          'ops.stack', 'ops.shift', 'core.frame'):\n"
+        "          'ops.stack', 'ops.shift', 'core.frame', 'core.memory',\n"
+        "          'io.fits', 'io.ser', 'io.seqfile', 'io.sequence',\n"
+        "          'registration.translation'):\n"
         "    assert 'siriltpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=PKG_ROOT)
     proc = subprocess.run([sys.executable, "-c", code], env=env,

@@ -1,12 +1,16 @@
-"""siriltpu_torch.stacking.api.stack_frames against siriltpu's, bit for
-bit: the stacked image and the per-channel rejection counters, for every
-method, every rejection with a kernel (and none), three normalizations,
-mono and colour, with shifts, at the default block size and at 7 rows
-(block edges inside the image).
+"""siriltpu_torch.stacking.api.stack_frames and stack_sequence against
+siriltpu's, bit for bit: the stacked image and the per-channel rejection
+counters, for every method, every rejection with a kernel (and none),
+three normalizations, mono and colour, with shifts, at the default block
+size and at 7 rows (block edges inside the image); stack_sequence from a
+SER file and from FITS files, with the frames read whole and streamed in
+row blocks.
 
 On the CPU the mean and median stacks run the kernels' plain versions;
-the ``cuda`` case at the end runs the kernels on the card.
+the ``cuda`` cases at the end run the kernels on the card.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -116,6 +120,139 @@ def test_default_block_rows_matches_jax():
         assert tapi.default_block_rows(f, w) == japi.default_block_rows(f, w)
 
 
+# ------------------------------------------------------------ stack_sequence
+
+def open_sequences(tmp_path, frames, kind="ser"):
+    """The frames written to disk once, as a SER file or as numbered FITS
+    files, and opened by both packages, with SHIFTS as the registration
+    data of layer 0 and frame 5 excluded."""
+    from siriltpu.core.frame import Frame
+    from siriltpu.io import fits as jfits
+    from siriltpu.io import sequence as jsequence
+    from siriltpu.io.ser import SER_MONO, SER_RGB, SerFile
+    from siriltpu_torch.io import sequence as tsequence
+
+    d = str(tmp_path)
+    if kind == "ser":
+        path = os.path.join(d, "cap.ser")
+        ser = SerFile.create(path, W, H, color_id=SER_RGB if frames.shape[1] == 3
+                             else SER_MONO)
+        for fr in frames:
+            ser.write_frame(Frame(fr))
+        ser.write_and_close()
+        seqs = jsequence.ser_sequence(path), tsequence.ser_sequence(path)
+    else:
+        for i, fr in enumerate(frames):
+            jfits.write_fits(os.path.join(d, f"img{i:03d}.fit"), Frame(fr))
+        jseq = jsequence.check_seq(d)[0]
+        seqs = jseq, tsequence.check_seq(d)[0]
+    for seq in seqs:
+        for r, (sx, sy) in zip(seq.ensure_regparam(0), SHIFTS):
+            r.shiftx, r.shifty = int(sx), int(sy)
+        seq.set_included(5, False)
+    return seqs
+
+
+def _assert_sequence_stacks(tmp_path, frames, kw, kind="ser"):
+    """stack_sequence with the frames read whole and streamed (in blocks
+    of 7 rows and at its default) equals siriltpu's and the port's
+    stack_frames on the frames it selects."""
+    from siriltpu.stacking import api as japi
+
+    jseq, tseq = open_sequences(tmp_path, frames, kind)
+    want = japi.stack_sequence(jseq, stream=False, **kw)
+    keep = [i for i in range(F) if i != 5]
+    assert want.total_pixels == len(keep) * frames[0].size
+    for stream, block_rows in ((False, None), (True, 7), (True, None)):
+        got = tapi.stack_sequence(tseq, device="cpu", stream=stream,
+                                  block_rows=block_rows, **kw)
+        _assert_same(got, want)
+        if stream and kw["method"] in ("mean", "median"):
+            assert tapi.stream_stats["blocks"] == frames.shape[1] * (
+                -(-H // block_rows) if block_rows else 1)
+    coeffs = None
+    if kw.get("normalize", "none") != "none":
+        coeffs = tapi.sequence_normalization(tseq, 0, keep, kw["normalize"])
+    _assert_same(tapi.stack_frames(frames[keep], device="cpu", shifts=SHIFTS[keep],
+                                   coeffs=coeffs, **kw), want)
+    return want
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("normalize", ["none", "additive_scaling"])
+@pytest.mark.parametrize("rejection", ["none", "sigma", "percentile",
+                                       "sigmedian", "winsorized"])
+def test_stack_sequence_mean_matches_jax(tmp_path, rejection, normalize, c):
+    kw = dict(method="mean", rejection=rejection, sig=SIGS[rejection],
+              normalize=normalize)
+    want = _assert_sequence_stacks(tmp_path, make_frames(c, seed=2), kw)
+    if rejection != "none":
+        assert want.rejection_low.sum() > 0 and want.rejection_high.sum() > 0
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("method,normalize", [
+    ("sum", "none"), ("max", "none"), ("min", "none"), ("median", "none"),
+    ("median", "multiplicative_scaling")])
+def test_stack_sequence_methods_match_jax(tmp_path, method, normalize, c):
+    _assert_sequence_stacks(tmp_path, make_frames(c, seed=3),
+                            dict(method=method, normalize=normalize))
+
+
+@pytest.mark.parametrize("method,rejection", [("mean", "winsorized"),
+                                              ("median", "none")])
+def test_stack_sequence_from_fits_files_matches_jax(tmp_path, method, rejection):
+    """The streaming stack reads its row blocks from FITS files by partial
+    reads; siriltpu's streaming stack gives the same image."""
+    from siriltpu.stacking import api as japi
+
+    frames = make_frames(1, seed=4)
+    kw = dict(method=method, rejection=rejection, sig=(3.0, 3.0),
+              normalize="additive")
+    want = _assert_sequence_stacks(tmp_path, frames, kw, kind="regular")
+    jseq, _ = open_sequences(tmp_path, frames, kind="regular")
+    _assert_same(japi.stack_sequence(jseq, stream=True, **kw), want)
+
+
+def test_stack_sequence_filters_and_streams_by_memory(tmp_path, monkeypatch):
+    from siriltpu.stacking import api as japi
+
+    frames = make_frames(1, seed=5)
+    jseq, tseq = open_sequences(tmp_path, frames)
+    for seq in (jseq, tseq):
+        for r, q in zip(seq.regparam[0], np.linspace(0.05, 1.0, F)):
+            r.quality = float(q)
+    kw = dict(method="mean", rejection="sigma", filter_type="best_quality",
+              filter_param=50.0)
+    want = japi.stack_sequence(jseq, stream=False, **kw)
+    assert want.total_pixels == len(tapi.filter_indices(
+        tseq, filter_type="best_quality", param=50.0)) * H * W
+    # with memory to spare the frames are read whole...
+    tapi.stream_stats.update(blocks=0)
+    _assert_same(tapi.stack_sequence(tseq, device="cpu", **kw), want)
+    assert tapi.stream_stats["blocks"] == 0
+    # ...and streamed once the sequence is more than a quarter of it
+    monkeypatch.setattr(tapi, "get_available_memory_mb", lambda: 0)
+    _assert_same(tapi.stack_sequence(tseq, device="cpu", **kw), want)
+    assert tapi.stream_stats["blocks"] == 1
+
+
+def test_stack_sequence_rejects_unported_and_bad_arguments(tmp_path):
+    _, tseq = open_sequences(tmp_path, make_frames(1))
+    for stream in (False, True):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
+            tapi.stack_sequence(tseq, device="cpu", rejection="linearfit",
+                                stream=stream)
+        with pytest.raises(ValueError, match="unknown rejection"):
+            tapi.stack_sequence(tseq, device="cpu", rejection="bogus", stream=stream)
+    with pytest.raises(TypeError):
+        tapi.stack_sequence(tseq)  # no device
+    for i in range(1, F):
+        tseq.set_included(i, False)
+    with pytest.raises(ValueError, match="at least 2"):
+        tapi.stack_sequence(tseq, device="cpu")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -138,3 +275,34 @@ def test_cuda_stack_frames_matches_cpu(cuda_device, method, rejection):
     got = tapi.stack_frames(frames, device=cuda_device, **kw)
     assert rs.launches[kernel] > before
     _assert_same(got, tapi.stack_frames(frames, device="cpu", **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("method,rejection", [
+    ("median", "none"), ("mean", "sigma"), ("mean", "winsorized")])
+def test_cuda_stack_sequence_matches_cpu(cuda_device, tmp_path, method,
+                                         rejection, stream):
+    """On the card a sequence on disk, read whole or streamed through
+    pinned buffers and a side stream, stacks through the kernel to the CPU
+    route's result."""
+    from siriltpu_torch.core.frame import Frame
+    from siriltpu_torch.io.sequence import ser_sequence
+    from siriltpu_torch.io.ser import SER_RGB, SerFile
+
+    frames = make_frames(3)
+    path = str(tmp_path / "cap.ser")
+    ser = SerFile.create(path, W, H, color_id=SER_RGB)
+    for fr in frames:
+        ser.write_frame(Frame(fr))
+    ser.write_and_close()
+    seq = ser_sequence(path)
+    for r, (sx, sy) in zip(seq.ensure_regparam(0), SHIFTS):
+        r.shiftx, r.shifty = int(sx), int(sy)
+    kw = dict(method=method, rejection=rejection, sig=SIGS[rejection],
+              normalize="additive_scaling", block_rows=7, stream=stream)
+    kernel = "median" if method == "median" else rejection
+    before = rs.launches[kernel]
+    got = tapi.stack_sequence(seq, device=cuda_device, **kw)
+    assert rs.launches[kernel] >= before + 3 * 4
+    _assert_same(got, tapi.stack_sequence(seq, device="cpu", **kw))
