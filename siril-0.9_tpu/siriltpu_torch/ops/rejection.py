@@ -2,7 +2,7 @@
 of the CUDA rejection kernels, including the exact masked loops that
 settle the pixels the window forms flag as degenerate.
 
-Port of ``siriltpu.ops.rejection`` (linearfit is not ported yet).
+Port of ``siriltpu.ops.rejection``.
 Reference: src/stacking/stacking.c:1128-1186 (clip predicates) and
 :1656-1788 (the per-pixel loops). Semantics frozen, as in the JAX package:
 
@@ -19,6 +19,8 @@ Reference: src/stacking/stacking.c:1128-1186 (clip predicates) and
 - WINSORIZED iterates (clamp to median +- 1.5 sigma, re-measure the median
   and 1.134 sd) until |sigma - sigma0| / sigma0 <= 5e-4, then sigma-clips
   the ORIGINAL values with the converged sigma and median (:1710-1748);
+- LINEARFIT fits value against rank by least squares, sigma = mean
+  |residual| (:1750-1783);
 - PERCENTILE is one pass on the relative distance from the median
   (:1130-1143), removing only if N > 1 (:1667-1673);
 - final pixel = round_to_WORD(mean of survivors) (:1790-1794).
@@ -33,11 +35,13 @@ Shapes: ``vals`` is (F, P) — F frames, P pixels. Values are WORD-valued
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from siriltpu_torch.ops.sortnet import sort_axis0
-from siriltpu_torch.utils.interop import i32_to_u16, to_float32, u16_to_i32
-from siriltpu_torch.utils.rounding import round_to_word_f
+from siriltpu_torch.utils.interop import (i32_to_u16, to_float32, u16_to_i32,
+                                          u16_to_numpy)
+from siriltpu_torch.utils.rounding import np_round_to_word, round_to_word_f
 
 Tensor = torch.Tensor
 
@@ -323,6 +327,87 @@ def reject_winsorized(vals: Tensor, siglow: float, sighigh: float):
     return valid, sv_orig, rejl, rejh
 
 
+#: residual/sigma ratios closer than this to the clip threshold are
+#: knife-edges the f32 fit cannot decide reliably against the C's f64
+#: math; such pixels are flagged for the exact host re-run
+#: (linearfit_hybrid_block). The f32 relative error of the fit+ratio chain
+#: is ~F * 2**-24 ~ 1e-5 at F = 100; 1e-4 leaves a tenfold guard band,
+#: which also absorbs the order of the f32 sums over F, while flagging
+#: next to nothing on real (continuous-noise) data.
+LINEARFIT_KNIFE_EPS = 1e-4
+
+
+def reject_linearfit(vals: Tensor, siglow: float, sighigh: float):
+    """LINEARFIT rejection (stacking.c:1750-1783): least-squares line over
+    (rank, sorted value), sigma = mean |residual|, clip by residual.
+
+    Returns ``(valid, sorted_vals, rejlow, rejhigh, knife)``: ``knife``
+    marks pixels whose clip decision came within LINEARFIT_KNIFE_EPS of
+    the threshold at any pass (re-run those through the f64 oracle for
+    bit-exactness, see linearfit_hybrid_block)."""
+    f, p = vals.shape
+    dev = vals.device
+    sv_orig = to_float32(sort_axis0(vals))
+    # f32 guard (as in reject_winsorized): the fit and its residual test
+    # are shift-equivariant, so centre on an integer anchor to keep the
+    # intercept and residual math away from ulp(65535) ~ 0.004
+    anchor = torch.floor(sv_orig[f // 2])
+    sv = sv_orig - anchor[None, :]
+    sl, sh = _f32(siglow, dev), _f32(sighigh, dev)
+    tiny, eps = _f32(1e-30, dev), _f32(LINEARFIT_KNIFE_EPS, dev)
+    inf = _f32(float("inf"), dev)
+    valid = torch.ones((f, p), dtype=torch.bool, device=dev)
+    done = torch.zeros(p, dtype=torch.bool, device=dev)
+    knife = torch.zeros_like(done)
+    z = torch.zeros(p, dtype=torch.int32, device=dev)
+    r, rejl, rejh = z, z, z
+    buf = torch.zeros((f, p), dtype=torch.int8, device=dev)
+    it = 0
+    # one host sync per pass: the loop runs until every pixel is done
+    while it < MAX_ITERS and not bool(done.all()):
+        n = valid.sum(dim=0).to(torch.int32)
+        nf1 = torch.clamp(n.to(torch.float32), min=1.0)
+        cum = torch.cumsum(valid, dim=0, dtype=torch.int32)
+        rank = torch.where(valid, (cum - 1).to(torch.float32), 0.0)
+        y = torch.where(valid, sv, 0.0)
+        xm = rank.sum(dim=0) / nf1
+        ym = y.sum(dim=0) / nf1
+        dx = torch.where(valid, rank - xm[None, :], 0.0)
+        dy = torch.where(valid, sv - ym[None, :], 0.0)
+        ssxx = (dx * dx).sum(dim=0)
+        a = torch.where(ssxx > 0,
+                        (dx * dy).sum(dim=0) / torch.maximum(ssxx, tiny), 0.0)
+        b = ym - a * xm
+        fitv = a[None, :] * rank + b[None, :]
+        resid = torch.where(valid, torch.abs(sv - fitv), 0.0)
+        sigma = resid.sum(dim=0) / nf1
+        safe_sig = torch.maximum(sigma, tiny)
+        ratio_lo = (fitv - sv) / safe_sig[None, :]
+        ratio_hi = (sv - fitv) / safe_sig[None, :]
+        sig_pos = (sigma > 0)[None, :]
+        low = (ratio_lo > sl) & valid & sig_pos
+        high = (ratio_hi > sh) & valid & sig_pos
+        # knife-edge detection: any frame's clip ratio within EPS of its
+        # threshold on an active pixel means f32 may disagree with the
+        # C's f64 decision: flag the pixel for the exact re-run
+        m = torch.where(valid & sig_pos,
+                        torch.minimum(torch.abs(ratio_lo - sl),
+                                      torch.abs(ratio_hi - sh)), inf)
+        knife = knife | (~done & (m.amin(dim=0) < eps))
+        new_valid, new_buf, r_new, removed, cnt_l, cnt_h = _stale_pass(
+            valid, buf, r, low, high, n)
+        n_new = n - removed
+        upd = ~done
+        valid = torch.where(upd[None, :], new_valid, valid)
+        buf = torch.where(upd[None, :], new_buf, buf)
+        rejl = rejl + torch.where(upd, cnt_l, 0)
+        rejh = rejh + torch.where(upd, cnt_h, 0)
+        r = torch.where(upd, r_new, r)
+        done = done | (removed == 0) | (n_new <= 3)
+        it += 1
+    return valid, sv_orig, rejl, rejh, knife
+
+
 def reject_percentile(vals: Tensor, plow: float, phigh: float):
     """PERCENTILE clipping (stacking.c:1130-1143, loop :1656-1673): one
     pass on the relative distance from the median; values are removed
@@ -563,7 +648,8 @@ def reject_and_mean(vals: Tensor, rejection: str, sig=(3.0, 3.0)):
     break are re-run through the reference-exact masked formulation.
     ``sigma_masked`` runs the masked loop for everything, and so do
     percentile, sigmedian and winsorized, as in the JAX package.
-    linearfit is not ported yet and raises NotImplementedError."""
+    ``linearfit`` is the plain f32 fit, without the exact re-run of its
+    knife-edge pixels (linearfit_hybrid_block has it)."""
     siglow, sighigh = float(sig[0]), float(sig[1])
     if rejection == "sigma":
         sv = sort_axis0(vals)
@@ -583,14 +669,57 @@ def reject_and_mean(vals: Tensor, rejection: str, sig=(3.0, 3.0)):
         valid, v, rejl, rejh = _MASKED[rejection](to_float32(vals), siglow,
                                                   sighigh)
     elif rejection == "linearfit":
-        raise NotImplementedError(
-            "rejection 'linearfit' is not ported to siriltpu_torch yet "
-            "(ROADMAP.md Queue 1 item 2)")
+        valid, v, rejl, rejh, _knife = reject_linearfit(vals, siglow, sighigh)
     else:
         raise ValueError(f"unknown rejection {rejection!r}")
     return _mean_of_survivors(v, valid), rejl, rejh
 
 
-__all__ = ["reject_and_mean", "reject_sigma", "reject_sigma_window",
+def linearfit_exact(columns: np.ndarray, sig):
+    """The literal f64 oracle (``verify.oracle.c_reject_block``,
+    stacking.c:1750-1783) on every column of a (F, K) WORD-valued host
+    array: the exact path of the linearfit hybrid. Returns NumPy ``(mean
+    uint16 (K,), rejlow int32 (K,), rejhigh int32 (K,))``."""
+    from siriltpu_torch.verify.oracle import c_reject_block
+
+    k = columns.shape[1]
+    mean = np.zeros(k, np.uint16)
+    rej = np.zeros((2, k), np.int32)
+    for j in range(k):
+        surv, rej[:, j] = c_reject_block(
+            columns[:, j].astype(np.uint16), "linearfit", sig)
+        if surv.size:
+            mean[j] = np_round_to_word(
+                surv.astype(np.float64).sum() / surv.size)
+    return mean, rej[0], rej[1]
+
+
+def linearfit_hybrid_block(flat, sig=(3.0, 3.0), *, device):
+    """LINEARFIT hybrid (the linearfit analog of sigma's hybrid): the f32
+    fit on ``device`` decides every pixel, and the rare pixels whose
+    residual/sigma ratio came within LINEARFIT_KNIFE_EPS of the clip
+    threshold, where f32 can flip the C's f64 decision, are re-run on the
+    host through the literal f64 oracle (linearfit_exact).
+
+    ``flat``: (F, P) WORD-valued array or tensor. Returns NumPy ``(mean
+    uint16 (P,), rejlow (P,), rejhigh (P,))``, bit-exact against the
+    compiled C including the counters."""
+    if not isinstance(flat, Tensor):
+        flat = torch.from_numpy(np.asarray(flat).astype(np.float32))
+    flat = to_float32(flat.to(device))
+    valid, v, rejl, rejh, knife = reject_linearfit(
+        flat, float(sig[0]), float(sig[1]))
+    mean = u16_to_numpy(_mean_of_survivors(v, valid))
+    rejl, rejh = rejl.cpu().numpy(), rejh.cpu().numpy()
+    kidx = torch.nonzero(knife)[:, 0]
+    if kidx.numel():
+        cols = flat[:, kidx].cpu().numpy()
+        kidx = kidx.cpu().numpy()
+        mean[kidx], rejl[kidx], rejh[kidx] = linearfit_exact(cols, sig)
+    return mean, rejl, rejh
+
+
+__all__ = ["reject_and_mean", "reject_linearfit", "linearfit_hybrid_block",
+           "linearfit_exact", "LINEARFIT_KNIFE_EPS", "reject_sigma", "reject_sigma_window",
            "reject_sigmedian", "reject_winsorized", "reject_winsorized_window",
            "reject_percentile", "reject_none", "masked_median", "MAX_ITERS"]

@@ -126,8 +126,9 @@ def register_and_stack(frames_dev: torch.Tensor, *, sel: Tuple[int, int, int],
     ``siriltpu``'s function and have no effect: the kernel stacks all rows
     in one launch, and eager PyTorch never donates the caller's frames.
     Every rejection with a kernel (sigma, median, percentile, sigmedian,
-    winsorized) runs it; linearfit is not ported yet and raises
-    NotImplementedError.
+    winsorized) runs it; none, sigma_masked and linearfit go through
+    ``reject_and_mean`` in plain PyTorch (linearfit as the f32 fit, without
+    the exact re-run of ``stacking.api``, as in ``siriltpu``).
     """
     f, h, w = frames_dev.shape
     sx, sy = compute_shifts(frames_dev, ref_index, sel)
@@ -143,7 +144,8 @@ def register_and_stack(frames_dev: torch.Tensor, *, sel: Tuple[int, int, int],
         # (sigma and winsorized with the exact degenerate-pixel re-run)
         stacked = reject_stack(flat, rejection, float(sig[0]), float(sig[1]))
     else:
-        # no kernel (none, sigma_masked): plain PyTorch on the device
+        # no kernel (none, sigma_masked, linearfit): plain PyTorch on the
+        # device
         stacked = reject_and_mean(flat, rejection, sig)[0]
     stacked = stacked.reshape(h, w)
     if return_device:

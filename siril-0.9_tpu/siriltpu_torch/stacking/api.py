@@ -17,14 +17,13 @@ Port of ``siriltpu.stacking.api``. Reference: src/stacking/stacking.c —
 Every row block is normalized, shifted, converted exactly to uint16 and
 stacked on the device (``_BlockLoop``, the one block loop of both
 entry points): the mean and median stacks through the CUDA rejection kernels
-(``ops.cuda.reject_stack``), rejection "none" through plain PyTorch. The
-result crosses to the host once, at the end. ``stack_frames`` gathers its
+(``ops.cuda.reject_stack``), rejection "none" and "linearfit" through plain
+PyTorch. The result crosses to the host once, at the end; linearfit also
+brings the raw values of its knife-edge pixels to the host, block by block,
+for their exact re-run (``_BlockLoop._linearfit``). ``stack_frames`` gathers its
 y-shifted blocks from frames on the device; the streaming
 ``stack_sequence`` reads them from the files with a host thread, into
 pinned memory, one block ahead of the card.
-
-Not ported yet: linearfit rejection, which needs ``verify/oracle.py``
-(ROADMAP.md Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -44,12 +43,14 @@ from siriltpu_torch.core.memory import (get_available_memory_mb,
                                         stacking_block_rows)
 from siriltpu_torch.ops import stack as basic_stack
 from siriltpu_torch.ops.cuda.reject_stack import reject_stack
-from siriltpu_torch.ops.rejection import reject_and_mean
+from siriltpu_torch.ops.rejection import (_mean_of_survivors, linearfit_exact,
+                                          reject_and_mean, reject_linearfit)
 from siriltpu_torch.ops.stats import (STATS_EXTRA, ikss_from_histogram,
                                       statistics)
 from siriltpu_torch.utils.interop import (frames_from_numpy, i32_to_u16,
                                           u16_to_i32, u16_to_numpy)
 from siriltpu_torch.utils.rounding import round_to_word_f
+from siriltpu_torch.verify.oracle import normalize_pixel_vector
 
 NORM_MODES = ("none", "additive", "additive_scaling", "multiplicative",
               "multiplicative_scaling")
@@ -61,6 +62,11 @@ METHODS = ("sum", "mean", "median", "max", "min")
 #: thread waited for the reader thread to hand over a block (read by
 #: chip_smoke.py)
 stream_stats = {"blocks": 0, "wait_s": 0.0}
+
+#: of the last linearfit stack: the knife-edge pixels re-run on the host,
+#: and the seconds that took, the gather of their values on the device and
+#: the write-back included (read by chip_smoke.py)
+linearfit_stats = {"knife": 0, "fixup_s": 0.0}
 
 
 # ------------------------------------------------------------- normalization
@@ -333,10 +339,6 @@ def _check_modes(method: str, rejection: str) -> None:
     if method == "mean":
         if rejection not in REJECTION_MODES:
             raise ValueError(f"unknown rejection {rejection}")
-        if rejection == "linearfit":
-            raise NotImplementedError(
-                "stacking with rejection 'linearfit' is not ported to "
-                "siriltpu_torch yet (ROADMAP.md Queue 1 item 2)")
 
 
 class _BlockLoop:
@@ -355,8 +357,11 @@ class _BlockLoop:
         self.siglow, self.sighigh = float(sig[0]), float(sig[1])
         off, mul, scale = ((np.zeros(f), np.ones(f), np.ones(f))
                            if coeffs is None else coeffs)
+        self.host_coeffs = (off, mul, scale)    # f64, for the exact re-run
         self.coeffs = torch.tensor(np.stack([off, mul, scale], axis=1),
                                    dtype=torch.float32, device=device)
+        if rejection == "linearfit":
+            linearfit_stats.update(knife=0, fixup_s=0.0)
         self.sx = torch.from_numpy(shifts[:, 0].astype(np.int64)).to(device)
         self.out = torch.empty((c, h, w), dtype=torch.int16, device=device)
         self.rejl = torch.zeros(c, dtype=torch.int64, device=device)
@@ -367,6 +372,9 @@ class _BlockLoop:
         norm = _normalize_block(block, self.coeffs, self.normalize)
         if self.method == "median":
             o = reject_stack(_to_u16(norm.reshape(f, -1)), "median", 0.0, 0.0)
+        elif self.rejection == "linearfit":
+            o, rl, rh = self._linearfit(
+                block, _xshift_block(norm, self.sx).reshape(f, -1))
         else:
             flat = _to_u16(_xshift_block(norm, self.sx).reshape(f, -1))
             if self.rejection == "none":
@@ -374,9 +382,48 @@ class _BlockLoop:
             else:
                 o, rl, rh = reject_stack(flat, self.rejection, self.siglow,
                                          self.sighigh, with_counters=True)
+        if self.method == "mean":
             self.rejl[ch] += rl.sum()
             self.rejh[ch] += rh.sum()
         self.out[ch, r0:r1] = o.view(torch.int16).reshape(r1 - r0, w)
+
+    def _linearfit(self, block: torch.Tensor, flat: torch.Tensor):
+        """The linearfit HYBRID on one block: the f32 fit decides every
+        pixel of ``flat``, the normalized and x-shifted (F, Bh * W) f32
+        values, and the pixels it flags as knife-edges are re-run on the
+        host through the literal f64 path (normalization
+        stacking.c:1635-1651 in f64, then ``linearfit_exact``) on their raw
+        values, gathered from the uint16 ``block`` at ``x - shiftx[i]``
+        with zero outside. One host sync a block, and only the flagged
+        pixels' (F, K) values cross. Returns (mean uint16, rejlow,
+        rejhigh), each (Bh * W,)."""
+        f, _, w = block.shape
+        valid, v, rl, rh, knife = reject_linearfit(flat, self.siglow,
+                                                   self.sighigh)
+        o = _mean_of_survivors(v, valid)
+        t0 = time.perf_counter()
+        kidx = torch.nonzero(knife)[:, 0]
+        if kidx.numel() == 0:
+            return o, rl, rh
+        cols = (kidx % w)[None, :] - self.sx[:, None]
+        inside = ((cols >= 0) & (cols < w)).cpu().numpy()
+        raw = block.view(torch.int16)[
+            torch.arange(f, device=block.device)[:, None],
+            (kidx // w)[None, :], cols.clamp(0, w - 1)]
+        raw = raw.cpu().numpy().view(np.uint16)
+        off, mul, scale = self.host_coeffs
+        vec = np.zeros(raw.shape, np.uint16)
+        for i in range(f):
+            vec[i] = np.where(inside[i], normalize_pixel_vector(
+                raw[i], self.normalize, scale[i], off[i], mul[i]), 0)
+        mean, kl, kh = linearfit_exact(vec, (self.siglow, self.sighigh))
+        o.view(torch.int16)[kidx] = torch.from_numpy(
+            mean.view(np.int16)).to(o.device)
+        rl[kidx] = torch.from_numpy(kl).to(rl.device)
+        rh[kidx] = torch.from_numpy(kh).to(rh.device)
+        linearfit_stats["knife"] += int(kidx.numel())
+        linearfit_stats["fixup_s"] += time.perf_counter() - t0
+        return o, rl, rh
 
     def result(self) -> StackResult:
         return StackResult(u16_to_numpy(self.out.view(torch.uint16)),
@@ -548,4 +595,5 @@ def _stack_sequence_streaming(seq, indices, shifts, *, device, method: str,
 __all__ = ["stack_frames", "stack_sequence", "stack_summary",
            "compute_normalization", "sequence_normalization", "ikss_stats",
            "filter_indices", "StackResult", "NORM_MODES", "REJECTION_MODES",
-           "METHODS", "default_block_rows", "stream_stats"]
+           "METHODS", "default_block_rows", "stream_stats",
+           "linearfit_stats"]

@@ -72,13 +72,17 @@ def test_register_and_stack_matches_jax():
 
 @pytest.mark.parametrize("rejection,sig", [
     ("percentile", (0.2, 0.1)), ("sigmedian", (3.0, 3.0)),
-    ("winsorized", (3.0, 3.0)), ("median", (0.0, 0.0))])
+    ("winsorized", (3.0, 3.0)), ("median", (0.0, 0.0)),
+    ("linearfit", (3.0, 2.0))])
 def test_register_and_stack_fused_rejections_match_jax(rejection, sig):
-    """Every rejection with a kernel, through the whole slice, against
-    JAX register_and_stack. JAX runs median only on the TPU (its CPU
-    route has no median rejection), so the median stack is held to JAX's
-    align and masked_median instead."""
-    from siriltpu.ops.rejection import masked_median
+    """Every rejection with a kernel, and linearfit, through the whole
+    slice, against JAX register_and_stack. JAX runs median only on the TPU
+    (its CPU route has no median rejection), so the median stack is held
+    to JAX's align and masked_median instead. linearfit is the plain f32
+    fit in both packages (no exact re-run): tolerance 0 on every pixel
+    that neither flags as a knife-edge."""
+    from siriltpu.ops.rejection import masked_median, reject_linearfit
+    from siriltpu_torch.ops.rejection import reject_linearfit as t_linearfit
 
     n, h, w = 8, 96, 96
     gen = np.random.default_rng(5).integers(-5, 6, size=(n, 2))
@@ -101,13 +105,21 @@ def test_register_and_stack_fused_rejections_match_jax(rejection, sig):
             jnp.asarray(mono), sel=sel, rejection=rejection, sig=sig,
             with_quality=False)
         np.testing.assert_array_equal(shifts, want_shifts)
+    if rejection == "linearfit":
+        aligned = np.asarray(jrs._align_frames_impl(
+            jnp.asarray(mono), jnp.asarray(shifts[:, 0]),
+            jnp.asarray(shifts[:, 1]))).reshape(n, h * w).astype(np.float32)
+        knife = (np.asarray(reject_linearfit(jnp.asarray(aligned), *sig)[4])
+                 | t_linearfit(torch.from_numpy(aligned), *sig)[4].numpy())
+        assert knife.mean() < 0.1
+        img, want_img = img.reshape(-1)[~knife], want_img.reshape(-1)[~knife]
     np.testing.assert_array_equal(img, want_img)
 
 
 def test_register_and_stack_rejects_unported_and_bad_selection():
     frames = frames_from_numpy(np.zeros((3, 32, 32), np.uint16), "cpu")
-    with pytest.raises(NotImplementedError):
-        trs.register_and_stack(frames, sel=(0, 0, 16), rejection="linearfit")
+    with pytest.raises(ValueError, match="unknown rejection"):
+        trs.register_and_stack(frames, sel=(0, 0, 16), rejection="bogus")
     with pytest.raises(ValueError):
         trs.register_and_stack(frames, sel=(20, 0, 16))
 

@@ -114,13 +114,10 @@ def test_sigma_goldens_exact(route):
 @pytest.mark.parametrize("rejection", ["none", "percentile", "sigmedian",
                                        "winsorized", "linearfit"])
 def test_unported_rejections_raise(rejection):
-    """linearfit is not ported and raises, naming its ROADMAP item; the
-    other rejections, once unported, now equal JAX reject_and_mean."""
+    """Every rejection, once unported, now equals JAX reject_and_mean
+    (linearfit on this block, which holds no knife-edge pixel; see
+    test_torch_linearfit.py)."""
     vals = make_vals(8, p=16)
-    if rejection == "linearfit":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trej.reject_and_mean(t(vals), rejection)
-        return
     want = jrej.reject_and_mean(jnp.asarray(vals), rejection, (2.0, 2.0))
     got = trej.reject_and_mean(t(vals), rejection, (2.0, 2.0))
     for name, g, w in zip(("mean", "rejl", "rejh"), got, want):

@@ -1,7 +1,8 @@
 """siriltpu_torch.stacking.api.stack_frames and stack_sequence against
 siriltpu's, bit for bit: the stacked image and the per-channel rejection
 counters, for every method, every rejection with a kernel (and none),
-three normalizations, mono and colour, with shifts, at the default block
+linearfit with its exact host re-run, three normalizations, mono and
+colour, with shifts, at the default block
 size and at 7 rows (block edges inside the image); stack_sequence from a
 SER file and from FITS files, with the frames read whole and streamed in
 row blocks.
@@ -24,7 +25,8 @@ from siriltpu_torch.stacking import api as tapi  # noqa: E402
 F, H, W = 12, 24, 40
 #: (siglow, sighigh) per rejection; percentile takes (plow, phigh)
 SIGS = {"none": (3.0, 3.0), "sigma": (3.0, 3.0), "percentile": (0.2, 0.1),
-        "sigmedian": (3.0, 3.0), "winsorized": (3.0, 3.0)}
+        "sigmedian": (3.0, 3.0), "winsorized": (3.0, 3.0),
+        "linearfit": (2.0, 1.5)}
 
 
 def make_frames(c: int, seed: int = 0) -> np.ndarray:
@@ -55,7 +57,7 @@ def _assert_same(got, want):
 @pytest.mark.parametrize("normalize", ["none", "additive_scaling",
                                        "multiplicative"])
 @pytest.mark.parametrize("rejection", ["none", "sigma", "percentile",
-                                       "sigmedian", "winsorized"])
+                                       "sigmedian", "winsorized", "linearfit"])
 def test_stack_frames_mean_matches_jax(rejection, normalize, c):
     from siriltpu.stacking import api as japi
 
@@ -68,6 +70,9 @@ def test_stack_frames_mean_matches_jax(rejection, normalize, c):
     for block_rows in (None, 7):
         _assert_same(tapi.stack_frames(frames, device="cpu",
                                        block_rows=block_rows, **kw), want)
+        if rejection == "linearfit":
+            # the exact host re-run of knife-edge pixels took part
+            assert tapi.linearfit_stats["knife"] > 0
 
 
 @pytest.mark.parametrize("c", [1, 3])
@@ -103,8 +108,6 @@ def test_stack_summary_matches_jax():
 
 def test_stack_frames_rejects_unported_and_bad_arguments():
     frames = make_frames(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        tapi.stack_frames(frames, device="cpu", rejection="linearfit")
     with pytest.raises(ValueError):
         tapi.stack_frames(frames, device="cpu", rejection="bogus")
     with pytest.raises(ValueError):
@@ -181,7 +184,7 @@ def _assert_sequence_stacks(tmp_path, frames, kw, kind="ser"):
 @pytest.mark.parametrize("c", [1, 3])
 @pytest.mark.parametrize("normalize", ["none", "additive_scaling"])
 @pytest.mark.parametrize("rejection", ["none", "sigma", "percentile",
-                                       "sigmedian", "winsorized"])
+                                       "sigmedian", "winsorized", "linearfit"])
 def test_stack_sequence_mean_matches_jax(tmp_path, rejection, normalize, c):
     kw = dict(method="mean", rejection=rejection, sig=SIGS[rejection],
               normalize=normalize)
@@ -240,9 +243,6 @@ def test_stack_sequence_filters_and_streams_by_memory(tmp_path, monkeypatch):
 def test_stack_sequence_rejects_unported_and_bad_arguments(tmp_path):
     _, tseq = open_sequences(tmp_path, make_frames(1))
     for stream in (False, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-            tapi.stack_sequence(tseq, device="cpu", rejection="linearfit",
-                                stream=stream)
         with pytest.raises(ValueError, match="unknown rejection"):
             tapi.stack_sequence(tseq, device="cpu", rejection="bogus", stream=stream)
     with pytest.raises(TypeError):
