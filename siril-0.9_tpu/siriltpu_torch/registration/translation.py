@@ -1,9 +1,10 @@
-"""Translation-family registration of a sequence: DFT phase correlation.
+"""Translation-family registration of a sequence: DFT phase correlation
+and ECC.
 
 Port of ``siriltpu.registration.translation``. Reference:
-src/registration/registration.c — ``register_shift_dft`` (:182-400). It
-produces per-frame regdata {shiftx, shifty, quality} on the chosen layer;
-qualities are normalized to [0, 1] afterwards (``normalizeQualityData``
+src/registration/registration.c — ``register_shift_dft`` (:182-400) and
+``register_ecc`` (:786-930). Both produce per-frame regdata {shiftx,
+shifty, quality} on the chosen layer; qualities are normalized to [0, 1] afterwards (``normalizeQualityData``
 :163-176). Consumers apply shifts as ``out(y, x) = frame(y - shifty, x -
 shiftx)`` in bottom-up rows.
 
@@ -14,25 +15,31 @@ SER sequences — a latent reference bug that would misalign SER stacks.
 We read ALL selections bottom-up (the self-consistent FITS convention),
 so shifts always align the stack regardless of container format.
 
-The selections are read and their quality estimated on the host, in
-float64 NumPy as in ``siriltpu`` (the batched float32 estimate on the
-device rounds differently); the phase correlation runs on ``device``.
-
-``register_ecc`` (registration.c:786-930) is not ported yet: it needs
-``ops/ecc.py`` and the OpenCV glue of ``ops/interp.py`` (ROADMAP.md Queue
-1 item 8).
+The frames are read and their quality estimated on the host, in float64
+NumPy as in ``siriltpu`` (the batched float32 estimate on the device
+rounds differently); the phase correlation and the ECC iteration run on
+``device``.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from siriltpu_torch.core.frame import Rect, select_area
+from siriltpu_torch.ops.ecc import ecc_translation_batch
 from siriltpu_torch.ops.fftreg import register_shift_frames
 from siriltpu_torch.ops.quality import (QUALTYPE_NORMAL, normalize_quality,
                                         quality_estimate)
+from siriltpu_torch.utils.rounding import np_round_to_int
+
+#: of the last ``register_ecc``: seconds reading frames, estimating their
+#: quality on the host, and in the ECC iteration on the device with its
+#: copies to and from it (read by chip_smoke.py)
+ecc_stats = {"read_s": 0.0, "quality_s": 0.0, "device_s": 0.0}
 
 
 def _ref_index(seq) -> int:
@@ -92,13 +99,67 @@ def register_shift_dft(seq, layer: int, selection: Rect, *, device,
     return RegistrationReport(best_frame=best)
 
 
-def register_ecc(seq, layer: int, *, process_all_frames: bool = True
-                 ) -> RegistrationReport:
+def register_ecc(seq, layer: int, *, device,
+                 process_all_frames: bool = True) -> RegistrationReport:
     """ECC translation registration over full frames
-    (``register_ecc``, registration.c:786-930): not ported yet."""
-    raise NotImplementedError(
-        "register_ecc is not ported to siriltpu_torch yet: it needs "
-        "ops/ecc.py and ops/interp.py (ROADMAP.md Queue 1 item 8)")
+    (``register_ecc``, registration.c:786-930), the iteration on
+    ``device``. Failing frames are excluded from the sequence
+    (incl = False)."""
+    reg = seq.ensure_regparam(layer)
+    ref_image = _ref_index(seq)
+    indices = [i for i in range(seq.number)
+               if process_all_frames or seq.imgparam[i].incl]
+    clock = time.perf_counter
+    read_s = quality_s = device_s = 0.0
+
+    t0 = clock()
+    ref_layer = seq.read_frame(ref_image).layer(layer)
+    t1 = clock()
+    qualities = np.full(seq.number, np.nan)
+    qualities[ref_image] = quality_estimate(ref_layer, QUALTYPE_NORMAL)
+    read_s, quality_s = t1 - t0, clock() - t1
+    failed = 0
+    others = [i for i in indices if i != ref_image]
+    reg[ref_image].shiftx = 0
+    reg[ref_image].shifty = 0
+    # every frame of a chunk aligns in one batched iteration on the device
+    # (the reference parallelizes this loop with OpenMP,
+    # registration.c:849); chunked so a long sequence doesn't need all
+    # frames resident
+    ref8 = torch.from_numpy(
+        np.minimum(ref_layer, 255).astype(np.float32)).to(device)
+    chunk = 64
+    for c0 in range(0, len(others), chunk):
+        batch = others[c0: c0 + chunk]
+        t0 = clock()
+        layers = [seq.read_frame(i).layer(layer) for i in batch]
+        t1 = clock()
+        imgs8 = torch.from_numpy(
+            np.minimum(np.stack(layers), 255).astype(np.float32)).to(device)
+        txs, tys, rhos = (v.cpu().numpy()
+                          for v in ecc_translation_batch(ref8, imgs8))
+        t2 = clock()
+        for k, i in enumerate(batch):
+            if rhos[k] <= 0:
+                seq.set_included(i, False)
+                failed += 1
+                continue
+            qualities[i] = quality_estimate(layers[k], QUALTYPE_NORMAL)
+            reg[i].shiftx = int(-np_round_to_int(float(txs[k])))
+            reg[i].shifty = int(-np_round_to_int(float(tys[k])))
+        read_s += t1 - t0
+        device_s += t2 - t1
+        quality_s += clock() - t2
+
+    ok = [i for i in indices if not np.isnan(qualities[i])]
+    nq = normalize_quality(qualities[ok])
+    for k, i in enumerate(ok):
+        reg[i].quality = float(nq[k])
+    best = ok[int(np.nanargmax(qualities[ok]))]
+    seq.needs_saving = True
+    ecc_stats.update(read_s=read_s, quality_s=quality_s, device_s=device_s)
+    return RegistrationReport(best_frame=best, failed=failed)
 
 
-__all__ = ["register_shift_dft", "register_ecc", "RegistrationReport"]
+__all__ = ["register_shift_dft", "register_ecc", "RegistrationReport",
+           "ecc_stats"]

@@ -116,8 +116,8 @@ def test_register_shift_dft_errors_and_unported(tmp_path):
         ttrans.register_shift_dft(tseq, 0, tframe.Rect(0, 0, 64, 32), device="cpu")
     with pytest.raises(TypeError):
         ttrans.register_shift_dft(tseq, 0, tframe.Rect(*SEL))  # no device
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
-        ttrans.register_ecc(tseq, 0)
+    with pytest.raises(TypeError):
+        ttrans.register_ecc(tseq, 0)  # ported (test_torch_ecc.py); no device
 
 
 def test_register_shift_frames_matches_jax():
