@@ -1,7 +1,6 @@
 """Memory probing and stacking block budgeting.
 
-Port of ``siriltpu.core.memory`` (``starfind_chunk_frames`` waits for the
-star pipeline, ROADMAP.md Queue 1 item 8).
+Port of ``siriltpu.core.memory``.
 
 Reference: ``get_available_memory_in_MB`` (src/core/utils.c:354) and the
 stacking memory model
@@ -47,5 +46,22 @@ def get_device_memory_bytes(device) -> int:
     return get_available_memory_mb() << 20
 
 
+def starfind_chunk_frames(h: int, w: int, *, device, n_devices: int = 1,
+                          nmax: int = 2048, box: int = 21) -> int:
+    """Frames per device-resident star-find chunk, from the memory free on
+    ``device`` (the registration analog of the reference's row-budget
+    model, stacking.c:1903-1915): per frame the batched star finder holds
+    the uint16 layer, ~4 f32 wavelet planes, the peak score map and the
+    gathered PSF boxes; chunks are rounded to a multiple of the device
+    count so frame shards stay even."""
+    per_frame = h * w * (2 + 4 * 5) + nmax * box * box * 4
+    budget = get_device_memory_bytes(device) * 0.35
+    c = max(1, int(budget / per_frame))
+    c = min(c, 64)
+    if n_devices > 1:
+        c = max(n_devices, (c // n_devices) * n_devices)
+    return c
+
+
 __all__ = ["get_available_memory_mb", "stacking_block_rows",
-           "get_device_memory_bytes"]
+           "get_device_memory_bytes", "starfind_chunk_frames"]

@@ -2,7 +2,8 @@
 
 There are no learned weights in this system: what the two packages
 exchange is data — (F, H, W) uint16 frames, (F, 2) int32 shifts, the
-(siglow, sighigh) pair, and a sequence's state: its registration data,
+(siglow, sighigh) pair, star lists and PSF fits (``stars_to_fields``,
+``psf_fit_to_numpy``), and a sequence's state: its registration data,
 selection and cached statistics. On disk that state is the ``.seq`` file
 beside the SER or FITS files, which either package reads and writes; in
 memory it crosses as a dict of plain fields (``sequence_to_fields``,
@@ -125,7 +126,38 @@ def sequence_from_fields(fields: dict, frames=None):
     return seq
 
 
+#: the fields of a ``Star`` of either package, as the dict form lists them
+STAR_COLUMNS = ("xpos", "ypos", "mag", "fwhmx", "fwhmy", "A", "B", "sx", "sy",
+                "angle", "rmse", "layer")
+
+
+def stars_to_fields(stars) -> dict:
+    """A star list of either package (``ops.starfind.Star``) as a dict of
+    (N,) NumPy columns, one per name of ``STAR_COLUMNS``: float64, but
+    ``layer`` int64. The list's order is kept."""
+    return {c: np.array([getattr(s, c) for s in stars],
+                        np.int64 if c == "layer" else np.float64)
+            for c in STAR_COLUMNS}
+
+
+def stars_from_fields(fields: dict) -> list:
+    """The port's star list from the columns ``stars_to_fields`` made."""
+    from siriltpu_torch.ops.starfind import Star
+
+    n = len(fields["xpos"])
+    return [Star(**{c: (int if c == "layer" else float)(fields[c][i])
+                    for c in STAR_COLUMNS}) for i in range(n)]
+
+
+def psf_fit_to_numpy(fit) -> dict:
+    """A ``PSFFit`` of either package (a named tuple of (N,) device
+    arrays) as a dict of NumPy arrays on the host."""
+    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)) for k, v in fit._asdict().items()}
+
+
 __all__ = ["u16_to_i32", "to_float32", "i32_to_u16", "frames_from_numpy",
            "u16_to_numpy", "shifts_to_numpy", "sequence_to_fields",
            "sequence_from_fields", "SEQUENCE_SCALARS", "REG_COLUMNS",
-           "STATS_COLUMNS"]
+           "STATS_COLUMNS", "stars_to_fields", "stars_from_fields",
+           "psf_fit_to_numpy", "STAR_COLUMNS"]

@@ -242,7 +242,9 @@ def test_port_imports_without_jax_or_siriltpu():
         "for m in ('pipelines.register_stack', 'stacking.api', 'ops.stats',\n"
         "          'ops.stack', 'ops.shift', 'core.frame', 'core.memory',\n"
         "          'io.fits', 'io.ser', 'io.seqfile', 'io.sequence',\n"
-        "          'registration.translation'):\n"
+        "          'registration.translation', 'registration.onestar',\n"
+        "          'verify.oracle', 'ops.interp', 'ops.ecc', 'ops.wavelets',\n"
+        "          'ops.psf', 'ops.photometry', 'ops.starfind'):\n"
         "    assert 'siriltpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=PKG_ROOT)
     proc = subprocess.run([sys.executable, "-c", code], env=env,
