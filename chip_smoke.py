@@ -63,7 +63,35 @@ exits non-zero without printing a result:
    registration, its normalization, its file reads and the rest of its
    stack, and, streamed, the seconds the main thread waited for the
    reader: one run each on the host clock, the file fresh in the page
-   cache.
+   cache;
+9. the paths that run no hand-written kernel (plain PyTorch on the card;
+   every check holds the card's result to other code or to the host):
+   a. linearfit: stack_frames(mean, linearfit (3, 3), no normalization) on
+      config 2's frames. The image and the rejection totals must equal the
+      same (F, P) data, built with other code, put through reject_linearfit
+      in 2^20-pixel chunks with every knife-edge pixel settled by the NumPy
+      oracle; that per-pixel result (mean and both counters) must equal
+      the oracle (verify/oracle.py:c_reject_block) on every knife-edge
+      pixel and on 2,000 seeded others. Prints the knife-edge pixels, the
+      seconds of their host re-run, frames/s, and reject_linearfit's ms at
+      50 x 4.19M beside its device-memory bound and torch.sort's ms;
+   b. ECC: 1000 frames of 480 x 640 in the 8-bit range (a disc with
+      detail, peak under 255, 2 counts of noise, whole-pixel drifts in
+      [-20, 20]) written as a SER file, registered with register_ecc (the
+      shifts must equal the generated ones and no frame may fail), then
+      stack_sequence(mean, sigma (3, 3)) bit-equal to stack_frames on the
+      frames in memory with the generated shifts. Prints the seconds of
+      the file reads, the host quality estimates and the device loop;
+   c. stars: 16 frames of 2048 x 3072 made on the card (sky 1000 with
+      noise, 500 Gaussian stars at sub-pixel positions, whole-pixel drifts
+      in [-8, 8]): peaker on one frame and peaker_batch on all. At least
+      95% of the planted stars must be found within 0.1 px in every frame,
+      the batch's list must equal peaker's, and the card's stars must equal
+      the same code's on device="cpu" (matched by position: within 0.01 px
+      and 0.002 mag). Then register_onestar on a box round the brightest
+      star through internal_sequence: the shifts must equal the generated
+      ones. Prints ms a frame for the host statistics, detection,
+      selection, box gather and fit.
 
 Each stack of phases 6-7 runs once with every launch count set to 0: its
 kernel must have launched, and the image and per-channel counters must be
@@ -111,6 +139,14 @@ CONFIG2 = (50, 2048, 2048)   # frames, height, width
 CONFIG3 = (1000, 480, 640)
 #: side of the square central registration selection of phase 8 (config 3)
 SEL3 = 256
+#: phase 9: the ECC sequence, the star frames and their planted stars,
+#: and the pixels of the linearfit stack held to the oracle beside its
+#: knife-edge pixels
+CONFIG_ECC = (1000, 480, 640)
+CONFIG_STARS = (16, 2048, 3072)
+NSTARS = 500
+STAR_DRIFT = 8
+LF_SAMPLE = 2000
 CHUNK = 1 << 20
 REPS = 3
 #: device-memory rate of one H100 SXM (NVIDIA's data sheet), for the bounds
@@ -260,6 +296,24 @@ class Record:
             fail(f"{paths} did not launch the {kernel} kernel")
 
 
+def sort_yardstick(flat):
+    """The time of torch.sort(dim=0) on (F, P) uint16 values, and the dtype
+    it sorted them as."""
+    import torch
+    from siriltpu_torch.utils.interop import u16_to_i32
+
+    try:
+        sort_ms, _ = cuda_ms(lambda: torch.sort(flat, dim=0))
+        sorted_as = "uint16"
+    except (RuntimeError, NotImplementedError):
+        wide = u16_to_i32(flat)
+        sort_ms, _ = cuda_ms(lambda: torch.sort(wide, dim=0))
+        sorted_as = "int32 (no uint16 sort on this card)"
+        del wide
+    torch.cuda.empty_cache()
+    return sort_ms, sorted_as
+
+
 def yardsticks(rec, card, kernel: str, flat):
     """The kernel's device-memory bound at the full shape of its path, the
     time of torch.sort(vals, dim=0) at that shape (a yardstick for the sort
@@ -271,15 +325,7 @@ def yardsticks(rec, card, kernel: str, flat):
     f, p = flat.shape
     nbytes, bound = hbm_bound(f, p)
     rec.bound[kernel] = bound
-    try:
-        sort_ms, _ = cuda_ms(lambda: torch.sort(flat, dim=0))
-        sorted_as = "uint16"
-    except (RuntimeError, NotImplementedError):
-        wide = u16_to_i32(flat)
-        sort_ms, _ = cuda_ms(lambda: torch.sort(wide, dim=0))
-        sorted_as = "int32 (no uint16 sort on this card)"
-        del wide
-    torch.cuda.empty_cache()
+    sort_ms, sorted_as = sort_yardstick(flat)
     print(f"yardstick [{card}] {kernel} at {f}x{p}: bound {bound:.4f} ms "
           f"({nbytes} bytes at {HBM_BYTES_PER_S:.3g} B/s); torch.sort(dim=0) "
           f"of the {sorted_as} values {sort_ms:.3f} ms", flush=True)
@@ -739,12 +785,330 @@ def phase8(rs, rec, dev, card, config2, config3):
                         *config2[:2], None, config2[2])
 
 
+def phase9a(dev, card):
+    """linearfit on config 2: stack_frames against reject_linearfit in
+    chunks plus the NumPy oracle, and the timing that decides whether
+    linearfit gets a kernel."""
+    import torch
+    from siriltpu_torch.ops.rejection import (_mean_of_survivors,
+                                              linearfit_exact, reject_linearfit)
+    from siriltpu_torch.stacking import api
+    from siriltpu_torch.utils.interop import frames_from_numpy, u16_to_i32
+
+    sig = (3.0, 3.0)
+    frames, shifts = make_frames(*CONFIG2, seed=2, dev=dev)
+    f, c, h, w = frames.shape
+    t0 = time.perf_counter()
+    res = api.stack_frames(frames, device=dev, method="mean", shifts=shifts,
+                           rejection="linearfit", sig=sig, normalize="none")
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    stats = dict(api.linearfit_stats)
+    if res.data.shape != (c, h, w) or res.data.dtype != np.uint16:
+        fail(f"phase9a: result {res.data.shape} {res.data.dtype}")
+
+    # the same values, assembled by other code, through the f32 fit in
+    # chunks; then every knife-edge pixel through the NumPy oracle
+    flat = reference_flat(frames, shifts, "mean", None)
+    del frames
+    mean = torch.empty(h * w, dtype=torch.int32, device=dev)
+    rl, rh = torch.empty_like(mean), torch.empty_like(mean)
+    knife = torch.empty(h * w, dtype=torch.bool, device=dev)
+    for a in range(0, h * w, CHUNK):
+        valid, v, rl[a:a + CHUNK], rh[a:a + CHUNK], knife[a:a + CHUNK] = \
+            reject_linearfit(flat[:, a:a + CHUNK], *sig)
+        mean[a:a + CHUNK] = u16_to_i32(_mean_of_survivors(v, valid))
+    del valid, v
+    kidx = torch.nonzero(knife)[:, 0]
+    t0 = time.perf_counter()
+    km, kl, kh = linearfit_exact(
+        flat.view(torch.int16)[:, kidx].cpu().numpy().view(np.uint16), sig)
+    oracle_s = time.perf_counter() - t0
+    flips = int((mean[kidx].cpu().numpy() != km).sum())
+    for dst, src in ((mean, km), (rl, kl), (rh, kh)):
+        dst[kidx] = torch.from_numpy(src.astype(np.int32)).to(dev)
+    got = u16_to_i32(frames_from_numpy(res.data[0], dev).reshape(-1))
+    errs = [int((got - mean).abs().max()),
+            abs(int(res.rejection_low[0]) - int(rl.sum())),
+            abs(int(res.rejection_high[0]) - int(rh.sum()))]
+    if any(errs):
+        fail(f"phase9a: stack_frames(linearfit) vs the chunked fit with the "
+             f"oracle on {kidx.numel()} knife-edge pixels (the stack re-ran "
+             f"{stats['knife']}): max|diff| image/rejlow/rejhigh {errs}")
+    # the f32 fit off the knife edge against the oracle, on seeded pixels
+    rng = np.random.default_rng(9)
+    sample = torch.from_numpy(rng.choice(h * w, LF_SAMPLE, replace=False)).to(dev)
+    sample = sample[~knife[sample]]
+    om, ol, oh = linearfit_exact(
+        flat.view(torch.int16)[:, sample].cpu().numpy().view(np.uint16), sig)
+    serrs = [int(np.abs(t[sample].cpu().numpy() - o.astype(np.int64)).max())
+             for t, o in ((mean, om), (rl, ol), (rh, oh))]
+    if any(serrs):
+        fail(f"phase9a: reject_linearfit vs the oracle on {sample.numel()} "
+             f"pixels off the knife edge: max|diff| mean/rejl/rejh {serrs}")
+    print(f"phase9a stack_frames(mean, linearfit {sig}, normalize=none) "
+          f"{f}x{c}x{h}x{w}: image and rejection totals (low "
+          f"{int(res.rejection_low[0])} high {int(res.rejection_high[0])}) vs the "
+          f"chunked fit + oracle max|diff|={max(errs)}; mean and both counters "
+          f"vs c_reject_block on {kidx.numel()} knife-edge pixels (the f32 fit "
+          f"alone differs on {flips}) and {sample.numel()} others "
+          f"max|diff|={max(serrs)}; its one run {sec:.3f} s, {f / sec:.3f} "
+          f"frames/s, of which the host re-run of {stats['knife']} knife-edge "
+          f"pixels {stats['fixup_s']:.3f} s (the oracle alone on as many here "
+          f"{oracle_s:.3f} s) [{card}]", flush=True)
+    del mean, rl, rh, knife
+    torch.cuda.empty_cache()
+
+    ms, _ = cuda_ms(chunked(lambda v: reject_linearfit(v, *sig), flat))
+    nbytes = 2 * f * h * w + 11 * h * w
+    sort_ms, sorted_as = sort_yardstick(flat)
+    print(f"timing [{card}] reject_linearfit at {f}x{h * w} in 2^20-pixel "
+          f"chunks: {ms:.3f} ms (median of {REPS} warm runs, a host sync a "
+          f"pass); bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes: "
+          f"uint16 values in, a uint16 mean, two int32 counters and a flag out, "
+          f"at {HBM_BYTES_PER_S:.3g} B/s); torch.sort(dim=0) of the {sorted_as} "
+          f"values {sort_ms:.3f} ms", flush=True)
+
+
+def make_disc_frames(f: int, h: int, w: int, seed: int, dev):
+    """(F, 1, H, W) uint16 frames in the 8-bit range, made on the card: a
+    planetary disc with bands and spots over a sky of 25, peak under 255,
+    each frame a crop of the scene drifted by whole pixels in [-20, 20]
+    with fresh noise of 2 counts. Returns the frames and the (F, 2) int32
+    registration shifts that undo the drift."""
+    import torch
+    from siriltpu_torch.utils.interop import i32_to_u16
+
+    rng = np.random.default_rng(seed)
+    drift = rng.integers(-20, 21, (f, 2))
+    drift[0] = 0
+    pad = 20
+    yy = torch.arange(h + 2 * pad, dtype=torch.float32, device=dev)[:, None] - pad
+    xx = torch.arange(w + 2 * pad, dtype=torch.float32, device=dev)[None, :] - pad
+    r = torch.sqrt((yy - h / 2) ** 2 + (xx - w / 2) ** 2)
+    detail = 1.0 + 0.12 * torch.sin(yy / 9.0) * torch.cos(xx / 31.0)
+    for cy, cx, rad in rng.uniform(-0.6, 0.6, (12, 3)):
+        spot = (yy - h / 2 - cy * h / 4) ** 2 + (xx - w / 2 - cx * h / 4) ** 2
+        detail = detail - 0.25 * torch.exp(-spot / (40.0 + 60.0 * abs(rad)))
+    scene = 25.0 + 180.0 * detail / (1 + torch.exp(r - h / 4))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    frames = torch.empty((f, h, w), dtype=torch.int16, device=dev)
+    for i, (dx, dy) in enumerate(drift):
+        crop = scene[pad - dy:pad - dy + h, pad - dx:pad - dx + w]
+        noisy = crop + 2.0 * torch.randn((h, w), generator=g, device=dev)
+        frames[i] = i32_to_u16(torch.round(noisy).clamp(0, 255)).view(torch.int16)
+    return frames.view(torch.uint16).reshape(f, 1, h, w), (-drift).astype(np.int32)
+
+
+def phase9b(rs, rec, dev, card):
+    """ECC registration of a SER sequence, then its sigma stack."""
+    import torch
+    from siriltpu_torch.io.sequence import ser_sequence
+    from siriltpu_torch.registration import translation
+    from siriltpu_torch.stacking import api
+
+    frames, shifts = make_disc_frames(*CONFIG_ECC, seed=4, dev=dev)
+    f, _, h, w = frames.shape
+    peak = int(frames.view(torch.int16).max())
+    if peak >= 255:
+        fail(f"phase9b: the frames' peak {peak} is not under 255")
+    sig = SIGS["sigma"]
+    kw = dict(method="mean", rejection="sigma", sig=sig, normalize="none")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "ecc.ser")
+        wrote = write_ser(path, frames)
+        t0 = time.perf_counter()
+        seq = ser_sequence(path)
+        report = translation.register_ecc(seq, 0, device=dev)
+        torch.cuda.synchronize()
+        reg_s = time.perf_counter() - t0
+        stats = dict(translation.ecc_stats)
+        if report.failed or len(seq.included_indices()) != f:
+            fail(f"phase9b: register_ecc excluded {report.failed} frames")
+        if not np.array_equal(seq.reg_shifts(0), shifts):
+            bad = int((seq.reg_shifts(0) != shifts).any(axis=1).sum())
+            fail(f"phase9b: {bad} recovered shifts differ from the generated ones")
+        rs.launches.update(dict.fromkeys(rs.launches, 0))
+        t0 = time.perf_counter()
+        res = api.stack_sequence(seq, device=dev, stream=False, **kw)
+        stack_s = time.perf_counter() - t0
+        rec.count(dict(rs.launches), "stack_sequence(mean, sigma) after register_ecc",
+                  "sigma")
+    want = api.stack_frames(frames, device=dev, shifts=shifts, **kw)
+    errs = [int(np.abs(res.data.astype(np.int64) - want.data).max()),
+            int(np.abs(res.rejection_low - want.rejection_low).max()),
+            int(np.abs(res.rejection_high - want.rejection_high).max())]
+    rec.check("sigma", errs, "phase9b stack_sequence vs stack_frames")
+    print(f"phase9b register_ecc {f}x{h}x{w} from a SER file ({wrote:.3f} s to "
+          f"write; peak {peak}): shifts exact, no frame excluded, best frame "
+          f"{report.best_frame}; {reg_s:.3f} s, {f / reg_s:.3f} frames/s (one run, "
+          f"host clock): file reads {stats['read_s']:.3f} s, host quality "
+          f"estimates {stats['quality_s']:.3f} s, the device loop with its copies "
+          f"{stats['device_s']:.3f} s; then stack_sequence(mean, sigma {sig}) "
+          f"{stack_s:.3f} s, launches={dict(rs.launches)}, image+counters vs "
+          f"stack_frames max|diff|={max(errs)}; {f / (reg_s + stack_s):.3f} "
+          f"frames/s from the open of the file [{card}]", flush=True)
+
+
+def make_star_frames(f: int, h: int, w: int, seed: int, dev):
+    """(F, H, W) uint16 bottom-up frames made on the card: a sky of 1000
+    with noise of 10 counts and NSTARS round Gaussian stars (the PSF fit's
+    model, B + A exp(-r^2 / S)) at sub-pixel positions at least 48 px
+    apart, each frame the scene drifted by whole pixels in [-STAR_DRIFT,
+    STAR_DRIFT]. Returns the frames, the (NSTARS, 4) table (x, y bottom-up
+    in frame 0, A, S) sorted brightest first, and the (F, 2) int32 drift
+    (dx, dy) of each frame."""
+    import torch
+    from siriltpu_torch.utils.interop import i32_to_u16
+
+    rng = np.random.default_rng(seed)
+    pad = STAR_DRIFT
+    margin = 40
+    pos = np.zeros((0, 2))
+    while len(pos) < NSTARS:
+        cand = rng.uniform((margin, margin), (w - margin, h - margin), (1, 2))
+        if not len(pos) or np.hypot(*(pos - cand).T).min() >= 48:
+            pos = np.concatenate([pos, cand])
+    amp = np.sort(rng.uniform(4000, 40000, NSTARS))[::-1]
+    table = np.column_stack([pos, amp, rng.uniform(4.0, 12.0, NSTARS)])
+    drift = rng.integers(-STAR_DRIFT, STAR_DRIFT + 1, (f, 2))
+    drift[0] = 0
+    # every star rendered in a 31 x 31 window of a padded scene
+    span = torch.arange(-15, 16, device=dev)
+    t = torch.tensor(table, dtype=torch.float64, device=dev)
+    cx, cy = torch.round(t[:, 0]).long(), torch.round(t[:, 1]).long()
+    ys = (cy[:, None] + span[None, :])[:, :, None].expand(-1, -1, 31)
+    xs = (cx[:, None] + span[None, :])[:, None, :].expand(-1, 31, -1)
+    r2 = (ys - t[:, 1, None, None]) ** 2 + (xs - t[:, 0, None, None]) ** 2
+    stars = t[:, 2, None, None] * torch.exp(-r2 / t[:, 3, None, None])
+    scene = torch.full((h + 2 * pad, w + 2 * pad), 1000.0, device=dev)
+    scene.index_put_((ys + pad, xs + pad), stars.to(torch.float32), accumulate=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    frames = torch.empty((f, h, w), dtype=torch.int16, device=dev)
+    for i, (dx, dy) in enumerate(drift):
+        crop = scene[pad - dy:pad - dy + h, pad - dx:pad - dx + w]
+        noisy = crop + 10.0 * torch.randn((h, w), generator=g, device=dev)
+        frames[i] = i32_to_u16(torch.round(noisy).clamp(0, 65535)).view(torch.int16)
+    return frames.view(torch.uint16), table, drift.astype(np.int32)
+
+
+def nearest(stars, x, y):
+    """Distance from each (x, y) to the nearest star of the list, and that
+    star's index."""
+    sx = np.array([s.xpos for s in stars])
+    sy = np.array([s.ypos for s in stars])
+    d = np.hypot(x[:, None] - sx[None, :], y[:, None] - sy[None, :])
+    return d.min(axis=1), d.argmin(axis=1)
+
+
+def phase9c(dev, card):
+    """Star detection on full frames, and one-star registration."""
+    import torch
+    from siriltpu_torch.core.frame import Frame, Rect
+    from siriltpu_torch.io.sequence import internal_sequence
+    from siriltpu_torch.ops import starfind
+    from siriltpu_torch.ops.psf import fit_psf_batch
+    from siriltpu_torch.registration.onestar import register_onestar
+    from siriltpu_torch.utils.interop import frames_from_numpy, u16_to_numpy
+
+    if torch.get_float32_matmul_precision() != "highest":
+        fail("float32 matmul precision is not 'highest': the PSF fit's "
+             "normal equations must not run in TF32")
+    frames_dev, table, drift = make_star_frames(*CONFIG_STARS, seed=5, dev=dev)
+    f, h, w = frames_dev.shape
+    layers = u16_to_numpy(frames_dev)
+    del frames_dev
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    one = starfind.peaker(layers[0], device=dev)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = starfind.peaker_batch(layers, device=dev)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    if batch[0] != one:
+        fail("phase9c: peaker_batch's list of frame 0 differs from peaker's")
+    found = []
+    for i, stars in enumerate(batch):
+        # planted positions, top-down, in frame i
+        d, _ = nearest(stars, table[:, 0] + drift[i, 0],
+                       (h - 1) - (table[:, 1] + drift[i, 1]))
+        found.append(float((d < 0.1).mean()))
+        if found[-1] < 0.95:
+            fail(f"phase9c: frame {i}: {100 * found[-1]:.1f}% of the planted "
+                 f"stars found within 0.1 px ({len(stars)} stars in its list)")
+    t0 = time.perf_counter()
+    host = starfind.peaker(layers[0], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    d, k = nearest(host, np.array([s.xpos for s in one]),
+                   np.array([s.ypos for s in one]))
+    dmag = np.abs(np.array([s.mag for s in one]) - np.array([host[j].mag for j in k]))
+    if len(host) != len(one) or d.max() > 0.01 or dmag.max() > 0.002:
+        fail(f"phase9c: the card's {len(one)} stars against the CPU's "
+             f"{len(host)}: max distance {d.max():.5f} px, max |dmag| {dmag.max():.5f}")
+    print(f"phase9c peaker {h}x{w}: {len(one)} stars of {NSTARS} planted in "
+          f"{one_s:.3f} s (first call); peaker_batch {f} frames in {batch_s:.3f} s, "
+          f"{f / batch_s:.3f} frames/s, list of frame 0 equal to peaker's, "
+          f"{min(len(b) for b in batch)}-{max(len(b) for b in batch)} stars a "
+          f"frame, planted stars found within 0.1 px "
+          f"{100 * min(found):.1f}%-{100 * max(found):.1f}%; the same code on "
+          f"device=cpu ({cpu_s:.3f} s): {len(host)} stars, max distance "
+          f"{d.max():.5f} px, max |dmag| {dmag.max():.6f} [{card}]", flush=True)
+
+    # where a frame's time goes: the host statistics on the host clock, the
+    # stages on the card by CUDA events (median of 3 warm runs)
+    sf = starfind.StarFinderParams()
+    t0 = time.perf_counter()
+    threshold, norm, bg = starfind._threshold(layers[0], sf)
+    stats_ms = (time.perf_counter() - t0) * 1e3
+    layer_dev = frames_from_numpy(layers[0], dev)
+    ms = {}
+    ms["wavelet"], wave = cuda_ms(lambda: starfind._wavelet_td(layer_dev))
+    ms["peaks"], mask = cuda_ms(lambda: starfind._detect_peaks(
+        wave, threshold, norm, sf.radius, (0, 0, w, h)))
+    ms["selection"], (ys, xs) = cuda_ms(lambda: starfind._select_candidates(
+        wave, mask, starfind.MAX_CANDIDATES))
+    real_td = layer_dev.view(torch.int16).flip(0).view(torch.uint16)
+    ms["box_gather"], boxes = cuda_ms(lambda: starfind._gather_boxes(
+        real_td, ys, xs, sf.radius))
+    bgs = torch.full((ys.numel(),), bg, dtype=torch.float32, device=dev)
+    ms["fit"], _ = cuda_ms(lambda: fit_psf_batch(boxes, bgs, norm=float(norm)))
+    print(f"timing [{card}] star-find a frame of {h}x{w}: host statistics "
+          f"{stats_ms:.3f} ms (host clock, one run); on the card (CUDA events, "
+          f"median of {REPS} warm runs) "
+          + " ".join(f"{k}_ms={v:.3f}" for k, v in ms.items())
+          + f"; {int(mask.sum())} peaks, {ys.numel()} candidates fitted",
+          flush=True)
+    del layer_dev, wave, mask, real_td, boxes
+    torch.cuda.empty_cache()
+
+    # one-star registration on a box round the brightest star
+    x0, y0 = int(round(table[0, 0])), int(round((h - 1) - table[0, 1]))
+    side = 48
+    seq = internal_sequence([Frame(layer[None]) for layer in layers])
+    t0 = time.perf_counter()
+    best, fwhm, results = register_onestar(
+        seq, 0, Rect(x0 - side // 2, y0 - side // 2, side, side), device=dev)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    if not all(r.ok for r in results) or not np.array_equal(seq.reg_shifts(0), -drift):
+        fail(f"phase9c: register_onestar's shifts differ from the generated ones "
+             f"({sum(r.ok for r in results)} of {f} fits valid)")
+    print(f"phase9c register_onestar on a {side}x{side} box, {f} frames: shifts "
+          f"exact, best frame {best} with FWHM {fwhm:.4f} px, {sec:.3f} s "
+          f"[{card}]", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases", default="", metavar="N,N",
-        help="run only these of the phases 3 to 8, after the device and "
+        help="run only these of the phases 3 to 9, after the device and "
              "build phases (to compare two trees in one call; phase 8 "
              "brings phases 6 and 7 with it); such a run prints its timing "
              "lines and no result")
@@ -846,7 +1210,17 @@ def main(argv=None) -> int:
     # ---- 8. configs 3 and 2 from SER files: register, stack, write
     if wanted(8):
         phase8(rs, rec, dev, card, config2, config3)
+        del config2, config3
+        torch.cuda.empty_cache()
         print(f"phase8 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- 9. linearfit, ECC and the star pipeline: plain PyTorch on the card
+    if wanted(9):
+        phase9a(dev, card)
+        print(f"phase9a done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        phase9b(rs, rec, dev, card)
+        print(f"phase9b done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        phase9c(dev, card)
+        print(f"phase9c done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} only: no result", flush=True)
         return 0

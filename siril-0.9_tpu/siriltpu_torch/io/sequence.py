@@ -2,8 +2,8 @@
 data and cached statistics.
 
 Port of ``siriltpu.io.sequence``, which is NumPy already: copied without
-change, but for films: their reader is not ported yet (ROADMAP.md Queue 1
-item 10), so ``check_seq`` raises ``NotImplementedError`` on a directory
+change, but for films: their reader (``io/films.py``) is not ported yet,
+so ``check_seq`` raises ``NotImplementedError`` on a directory
 that holds one.
 
 Reference: src/io/sequence.c (struct sequ src/core/siril.h:328-374,
@@ -237,7 +237,7 @@ def check_seq(directory: str = ".", *, force: bool = False,
             # them via check_for_film_extensions, sequence.c:231-247)
             raise NotImplementedError(
                 f"{path}: film sequences are not ported to siriltpu_torch "
-                "yet (ROADMAP.md Queue 1 item 10)")
+                "yet: they need io/films.py")
         if not any(low.endswith("." + e) for e in extensions):
             continue
         parsed = get_index_and_basename(path)

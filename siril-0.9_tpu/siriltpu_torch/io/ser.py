@@ -2,7 +2,7 @@
 
 Port of ``siriltpu.io.ser``, which is NumPy already: copied without
 change, but for two things. Debayering a CFA file on read needs
-``ops/demosaic.py``, which is not ported yet (ROADMAP.md Queue 1 item 9):
+``ops/demosaic.py``, which is not ported yet:
 ``debayer=True`` on such a file raises ``NotImplementedError``; without it
 a CFA file reads as mono, as in the reference. And a partial read of a
 mono file whose area spans the full width reads its rows in one piece.
@@ -57,8 +57,8 @@ BAYER_IDS = (SER_BAYER_RGGB, SER_BAYER_GRBG, SER_BAYER_GBRG, SER_BAYER_BGGR)
 
 _HEADER_FMT = "<14siiiiiiI40s40s40sqq"
 
-_NO_DEBAYER = ("debayering a CFA SER file is not ported to siriltpu_torch yet "
-               "(ROADMAP.md Queue 1 item 9); open it with debayer=False to "
+_NO_DEBAYER = ("debayering a CFA SER file is not ported to siriltpu_torch yet: "
+               "it needs ops/demosaic.py; open it with debayer=False to "
                "read the mosaic as mono")
 
 

@@ -292,9 +292,9 @@ def test_ser_cfa_reads_mono_and_debayer_names_its_roadmap_item(tmp_path):
     np.testing.assert_array_equal(
         got_file.read_opened_partial(0, 1, tframe.Rect(2, 2, 8, 8)),
         want_file.read_opened_partial(0, 1, jframe.Rect(2, 2, 8, 8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="ops/demosaic.py"):
         got_file.read_frame(0, debayer=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="ops/demosaic.py"):
         got_file.read_opened_partial(0, 0, tframe.Rect(2, 2, 8, 8), debayer=True)
 
 

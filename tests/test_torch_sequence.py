@@ -136,7 +136,7 @@ def test_check_seq_discovers_what_jax_discovers(tmp_path):
 
 def test_check_seq_film_names_its_roadmap_item(tmp_path):
     (tmp_path / "movie.avi").write_bytes(b"RIFF")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="io/films.py"):
         tsequence.check_seq(str(tmp_path))
     assert tsequence.FILM_EXTENSIONS == jsequence._film_exts()
 
