@@ -790,6 +790,7 @@ def phase9a(dev, card):
     chunks plus the NumPy oracle, and the timing that decides whether
     linearfit gets a kernel."""
     import torch
+    from siriltpu_torch.ops import rejection
     from siriltpu_torch.ops.rejection import (_mean_of_survivors,
                                               linearfit_exact, reject_linearfit)
     from siriltpu_torch.stacking import api
@@ -860,11 +861,28 @@ def phase9a(dev, card):
     torch.cuda.empty_cache()
 
     ms, _ = cuda_ms(chunked(lambda v: reject_linearfit(v, *sig), flat))
+    # its passes (each ends on one host check of ``done.all()``), counted
+    # in one more run, and what such a check costs on its own
+    passes = []
+    stale_pass = rejection._stale_pass
+    rejection._stale_pass = lambda *a: passes.append(0) or stale_pass(*a)
+    try:
+        chunked(lambda v: reject_linearfit(v, *sig), flat)()
+    finally:
+        rejection._stale_pass = stale_pass
+    done = torch.zeros(CHUNK, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        bool(done.all())
+    check_us = (time.perf_counter() - t0) * 1e4
     nbytes = 2 * f * h * w + 11 * h * w
     sort_ms, sorted_as = sort_yardstick(flat)
     print(f"timing [{card}] reject_linearfit at {f}x{h * w} in 2^20-pixel "
-          f"chunks: {ms:.3f} ms (median of {REPS} warm runs, a host sync a "
-          f"pass); bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes: "
+          f"chunks: {ms:.3f} ms (median of {REPS} warm runs), {len(passes)} "
+          f"passes over its chunks, {ms / len(passes):.3f} ms a pass, each "
+          f"with one host check of done.all() ({check_us:.1f} us on an idle "
+          f"card); bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes: "
           f"uint16 values in, a uint16 mean, two int32 counters and a flag out, "
           f"at {HBM_BYTES_PER_S:.3g} B/s); torch.sort(dim=0) of the {sorted_as} "
           f"values {sort_ms:.3f} ms", flush=True)

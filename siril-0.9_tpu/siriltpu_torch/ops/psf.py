@@ -248,7 +248,7 @@ def fit_psf_batch(boxes: Tensor, bgs: Tensor, fit_angle: bool = False,
 
     Returns a PSFFit of (N,) tensors; B/A/rmse normalized by ``norm``
     (psf_global_minimisation :647-650)."""
-    n, h, w = boxes.shape
+    _, h, w = boxes.shape
     boxes = boxes.to(torch.float32)
     B, A, x0, y0, sx, sy, angle, rmse, mag = _fit_boxes(
         boxes, bgs.to(torch.float32), fit_angle)

@@ -278,6 +278,19 @@ def test_cuda_stack_frames_matches_cpu(cuda_device, method, rejection):
 
 
 @pytest.mark.cuda
+def test_cuda_stack_frames_linearfit_matches_cpu(cuda_device):
+    """linearfit has no kernel: on the card the f32 fit is plain PyTorch,
+    whose sums over F run in another order than the CPU's, and the exact
+    host re-run of the knife-edge pixels makes the two results equal."""
+    frames = make_frames(3)
+    kw = dict(method="mean", shifts=SHIFTS, rejection="linearfit",
+              sig=SIGS["linearfit"], normalize="additive_scaling", block_rows=7)
+    got = tapi.stack_frames(frames, device=cuda_device, **kw)
+    assert tapi.linearfit_stats["knife"] > 0
+    _assert_same(got, tapi.stack_frames(frames, device="cpu", **kw))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("stream", [False, True])
 @pytest.mark.parametrize("method,rejection", [
     ("median", "none"), ("mean", "sigma"), ("mean", "winsorized")])
