@@ -11,8 +11,8 @@ Both packages get the same seeded NumPy inputs. Tolerances:
 - the knife masks themselves only loosely: the fit's sums over F are f32
   reductions whose order torch and XLA do not share, so a ratio that lies
   within ~1e-5 of the 1e-4 band's edge may be flagged by one package and
-  not by the other. At most 1 pixel in 100 may differ (3 in 2048 did at
-  most when this was written)."""
+  not by the other. At most 1 pixel in 100 may differ (on this file's
+  blocks none does; 1 in 2048 did on a wider block of the same kind)."""
 
 import numpy as np
 import pytest
