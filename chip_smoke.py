@@ -92,6 +92,34 @@ exits non-zero without printing a result:
       star through internal_sequence: the shifts must equal the generated
       ones. Prints ms a frame for the host statistics, detection,
       selection, box gather and fit.
+10. global star registration, BASELINE config 4 (plain PyTorch on the card
+    but for the sigma kernel of its stacks):
+    a. 100 RGB frames of 2048 x 3072 made on the card (sky 1000 with noise
+       10 in each channel, 500 round Gaussian stars with channel gains
+       1.0, 0.8 and 0.6; each frame the star positions moved through a
+       planted homography, rotation in [-0.5, 0.5] degrees and sub-pixel
+       shift in [-8, 8] px, frame 0 the identity), registered in memory
+       by register_global_star (linear) and stacked by stack_frames(mean,
+       sigma (3, 3)). Every frame must register, every homography map the
+       frame's corners within 0.1 px of the planted one's,
+       global_align_batch give the same homographies and pixels on the
+       first 8 frames, the stack equal the plain version (image and
+       counters, every channel) and stay sharp: the mean FWHM of the
+       stars peaker finds on its layer 0 within 10% of frame 0's.
+    b. the same from disk, cut to layer 0 of the first 16 frames (100 RGB
+       frames would write 7.5 GB): FITS files in a temporary directory,
+       check_seq, register_global_star writing the r_ sequence and its
+       .seq, stack_sequence(mean, sigma (3, 3)) on it. The r_ frames must
+       read back equal to an in-memory run's output and the stack equal
+       stack_frames of those frames.
+    c. the warp alone on one 2048 x 3072 layer: nearest, linear, cubic
+       and lanczos4 timed beside the bytes bound and torch's grid_sample
+       (a yardstick the port does not call), and the card's words against
+       the same code on device="cpu" for two frames: equal, lanczos4
+       within 1 LSB.
+    Prints frames/s of each registration with the seconds of its file
+    reads, host statistics, peaker_batch on the card, host matching and
+    RANSAC, warp, copy to the host and output, and the stack's seconds.
 
 Each stack of phases 6-7 runs once with every launch count set to 0: its
 kernel must have launched, and the image and per-channel counters must be
@@ -146,6 +174,14 @@ CONFIG_ECC = (1000, 480, 640)
 CONFIG_STARS = (16, 2048, 3072)
 NSTARS = 500
 STAR_DRIFT = 8
+#: phase 10: BASELINE config 4 (frames, layers, height, width), the frames
+#: of its run from disk, the planted rotation (degrees) and shift (px)
+#: bounds, the channel gains, and the frames global_align_batch repeats
+CONFIG4 = (100, 3, 2048, 3072)
+CONFIG4_DISK = 16
+ROT4, SHIFT4 = 0.5, 8.0
+GAINS4 = (1.0, 0.8, 0.6)
+BATCH4 = 8
 LF_SAMPLE = 2000
 CHUNK = 1 << 20
 REPS = 3
@@ -1121,12 +1157,345 @@ def phase9c(dev, card):
           f"[{card}]", flush=True)
 
 
+def planted_homographies(f: int, rng) -> np.ndarray:
+    """(F, 3, 3) top-down homographies frame -> reference: a rotation in
+    [-ROT4, ROT4] degrees about the origin and a shift in [-SHIFT4, SHIFT4]
+    px, scale 1; frame 0 the identity."""
+    ang = np.deg2rad(rng.uniform(-ROT4, ROT4, f))
+    Hs = np.tile(np.eye(3), (f, 1, 1))
+    Hs[:, 0, 0] = Hs[:, 1, 1] = np.cos(ang)
+    Hs[:, 0, 1], Hs[:, 1, 0] = -np.sin(ang), np.sin(ang)
+    Hs[:, :2, 2] = rng.uniform(-SHIFT4, SHIFT4, (f, 2))
+    Hs[0] = np.eye(3)
+    return Hs
+
+
+def make_config4_frames(f: int, c: int, h: int, w: int, seed: int, dev):
+    """(F, C, H, W) uint16 bottom-up frames made on the card: in each
+    channel a sky of 1000 with noise of 10 counts and NSTARS round Gaussian
+    stars (B + gain A exp(-r^2 / S)) at least 48 px apart, each frame's star
+    positions the reference's moved through the inverse of its planted
+    homography (planted_homographies). Returns the frames and the (F, 3, 3)
+    homographies frame -> reference, top-down."""
+    import torch
+    from siriltpu_torch.utils.interop import i32_to_u16
+
+    rng = np.random.default_rng(seed)
+    margin = 64
+    pos = np.zeros((0, 2))
+    while len(pos) < NSTARS:
+        cand = rng.uniform((margin, margin), (w - margin, h - margin), (1, 2))
+        if not len(pos) or np.hypot(*(pos - cand).T).min() >= 48:
+            pos = np.concatenate([pos, cand])
+    amp = rng.uniform(4000, 40000, NSTARS)
+    spread = rng.uniform(4.0, 12.0, NSTARS)
+    Hs = planted_homographies(f, rng)
+    pad = 64
+    span = torch.arange(-15, 16, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    frames = torch.empty((f, c, h, w), dtype=torch.int16, device=dev)
+    ref_td = np.column_stack([pos, np.ones(NSTARS)])
+    for i in range(f):
+        ph = ref_td @ np.linalg.inv(Hs[i]).T
+        x, y_td = ph[:, 0] / ph[:, 2], ph[:, 1] / ph[:, 2]
+        t = torch.tensor(np.column_stack([x, (h - 1) - y_td, amp, spread]),
+                         dtype=torch.float64, device=dev)
+        cx, cy = torch.round(t[:, 0]).long(), torch.round(t[:, 1]).long()
+        ys = (cy[:, None] + span[None, :])[:, :, None].expand(-1, -1, 31)
+        xs = (cx[:, None] + span[None, :])[:, None, :].expand(-1, 31, -1)
+        r2 = (ys - t[:, 1, None, None]) ** 2 + (xs - t[:, 0, None, None]) ** 2
+        stars = t[:, 2, None, None] * torch.exp(-r2 / t[:, 3, None, None])
+        sky = torch.zeros((h + 2 * pad, w + 2 * pad), device=dev)
+        sky.index_put_((ys + pad, xs + pad), stars.to(torch.float32), accumulate=True)
+        core = sky[pad:pad + h, pad:pad + w]
+        for ch, gain in enumerate(GAINS4[:c]):
+            noise = torch.randn((h, w), generator=g, device=dev)
+            noisy = 1000.0 + gain * core + 10.0 * noise
+            frames[i, ch] = i32_to_u16(torch.round(noisy).clamp(0, 65535)).view(torch.int16)
+    return frames.view(torch.uint16), Hs
+
+
+def corner_error(H, planted, h: int, w: int) -> float:
+    """Largest distance between where H and the planted homography send the
+    four frame corners (top-down)."""
+    corners = np.array([[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1]], np.float64)
+
+    def move(m):
+        ph = np.column_stack([corners, np.ones(4)]) @ m.T
+        return ph[:, :2] / ph[:, 2:]
+    return float(np.hypot(*(move(H) - move(planted)).T).max())
+
+
+def registration_line(gstats, stats_s: float, frames: int, sec: float) -> str:
+    """frames/s of one register_global_star run and where its seconds went."""
+    return (f"{sec:.3f} s, {frames / sec:.3f} frames/s (one run, host clock): "
+            f"frame reads {gstats['read_s']:.3f} s (loader thread; the main "
+            f"thread waited {gstats['wait_s']:.3f}), peaker_batch "
+            f"{gstats['starfind_s']:.3f} (host statistics {stats_s:.3f}, the "
+            f"rest on the card {gstats['starfind_s'] - stats_s:.3f}), host "
+            f"matching and RANSAC {gstats['match_s']:.3f}, warp "
+            f"{gstats['warp_s']:.3f}, copy to the host {gstats['copy_s']:.3f}, "
+            f"output {gstats['write_s']:.3f}")
+
+
+def timed_registration(dev, seq, **kw):
+    """register_global_star on ``seq``, with the seconds its peaker_batch
+    calls spent in the host statistics. Returns the report, the seconds,
+    the module's global_stats and the statistics' seconds."""
+    import torch
+    from siriltpu_torch.ops import starfind
+    from siriltpu_torch.registration import global_star
+
+    clock = Clock()
+    threshold, batch = starfind._threshold, starfind.peaker_batch
+    inside = [0.0]
+
+    def timed_batch(*args, **kwargs):
+        clock.take()
+        try:
+            return batch(*args, **kwargs)
+        finally:
+            inside[0] += clock.take()[0]
+
+    starfind._threshold = clock.wrap(threshold)
+    starfind.peaker_batch = timed_batch
+    try:
+        t0 = time.perf_counter()
+        report = global_star.register_global_star(seq, 0, device=dev, **kw)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    finally:
+        starfind._threshold, starfind.peaker_batch = threshold, batch
+    return report, sec, dict(global_star.global_stats), inside[0]
+
+
+def mean_fwhm(stars) -> float:
+    return float(np.mean([s.fwhmx for s in stars]))
+
+
+def phase10a(rs, rec, dev, card, host, planted):
+    """Config 4 in memory: register_global_star, global_align_batch on the
+    first frames, the sigma stack against its plain version, sharpness."""
+    import torch
+    from siriltpu_torch.core.frame import Frame
+    from siriltpu_torch.io.sequence import internal_sequence
+    from siriltpu_torch.ops import starfind
+    from siriltpu_torch.ops.rejection import reject_and_mean
+    from siriltpu_torch.registration import global_star
+    from siriltpu_torch.stacking import api
+    from siriltpu_torch.utils.interop import frames_from_numpy
+
+    f, c, h, w = host.shape
+    out = []
+    report, reg_s, gstats, stats_s = timed_registration(
+        dev, internal_sequence([Frame(fr) for fr in host]), write_output=False,
+        output_frames=out)
+    if report.registered != f or report.failed:
+        fail(f"phase10a: {report.registered} of {f} frames registered, "
+             f"{report.failed} failed")
+    errs = [corner_error(H, p, h, w) for H, p in zip(report.homographies, planted)]
+    if max(errs) > 0.1:
+        fail(f"phase10a: frame {int(np.argmax(errs))}'s homography moves a corner "
+             f"{max(errs):.4f} px from the planted one's")
+    print(f"phase10a register_global_star {f}x{c}x{h}x{w} in memory (linear): "
+          f"{f} registered, corners within {max(errs):.5f} px of the planted "
+          f"homographies (median {np.median(errs):.5f}); "
+          + registration_line(gstats, stats_s, f, reg_s) + f" [{card}]", flush=True)
+
+    aligned, brep = global_star.global_align_batch(host[:BATCH4, 0], 0, device=dev,
+                                                   nmax=2048)
+    for i in range(BATCH4):
+        if not np.array_equal(brep.homographies[i], report.homographies[i]):
+            fail(f"phase10a: global_align_batch's homography of frame {i} differs")
+        if not np.array_equal(aligned[i], out[i].data[0]):
+            fail(f"phase10a: global_align_batch's pixels of frame {i} differ")
+    print(f"phase10a global_align_batch on the first {BATCH4} frames: the same "
+          f"homographies and pixels as register_global_star", flush=True)
+    del aligned
+
+    sig = SIGS["sigma"]
+    stacked = np.stack([fr.data for fr in out])
+    del out
+    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    t0 = time.perf_counter()
+    res = api.stack_frames(stacked, device=dev, method="mean", rejection="sigma",
+                           sig=sig, normalize="none")
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    launches = dict(rs.launches)
+    rec.count(launches, "stack_frames after register_global_star", "sigma")
+    vals = frames_from_numpy(stacked, dev).view(torch.int16)
+    errs = []
+    for ch in range(c):
+        flat = vals[:, ch].reshape(f, -1).view(torch.uint16)
+        got = frames_from_numpy(res.data[ch], dev).reshape(-1)
+        rl = rh = 0
+        for a in range(0, flat.shape[1], CHUNK):
+            pm, pl, ph = reject_and_mean(flat[:, a:a + CHUNK], "sigma", sig)
+            errs.append(max_abs_diff(got[a:a + CHUNK], pm))
+            rl += int(pl.sum())
+            rh += int(ph.sum())
+        errs += [abs(int(res.rejection_low[ch]) - rl),
+                 abs(int(res.rejection_high[ch]) - rh)]
+    del vals, flat
+    torch.cuda.empty_cache()
+    rec.check("sigma", errs, "phase10a stack_frames after register_global_star")
+    ref_stars = starfind.peaker(host[0, 0], device=dev)
+    stack_stars = starfind.peaker(res.data[0], device=dev)
+    ratio = mean_fwhm(stack_stars) / mean_fwhm(ref_stars)
+    if abs(ratio - 1.0) > 0.10:
+        fail(f"phase10a: the stack's mean FWHM is {ratio:.4f} times frame 0's")
+    print(f"phase10a stack_frames(mean, sigma {sig}) of the aligned "
+          f"{f}x{c}x{h}x{w}: launches={launches}, image+counters of every "
+          f"channel vs plain max|diff|={max(errs)}, rejected low "
+          f"{res.rejection_low.tolist()} high {res.rejection_high.tolist()}; "
+          f"{stack_s:.3f} s (one run, host clock); layer 0's mean FWHM "
+          f"{mean_fwhm(stack_stars):.4f} px over {len(stack_stars)} stars, frame "
+          f"0's {mean_fwhm(ref_stars):.4f} px over {len(ref_stars)} (ratio "
+          f"{ratio:.4f}); {f / (reg_s + stack_s):.3f} frames/s registration and "
+          f"stack [{card}]", flush=True)
+
+
+def phase10b(rs, rec, dev, card, disk):
+    """Config 4 from FITS files, cut to ``disk`` (F, 1, H, W): the r_
+    sequence and its stack against an in-memory run."""
+    from siriltpu_torch.core.frame import Frame
+    from siriltpu_torch.io.fits import write_fits
+    from siriltpu_torch.io.sequence import check_seq, internal_sequence
+    from siriltpu_torch.registration import global_star
+    from siriltpu_torch.stacking import api
+
+    f, _, h, w = disk.shape
+    sig = SIGS["sigma"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        for i, fr in enumerate(disk):
+            write_fits(os.path.join(tmp, f"light_{i + 1:05d}.fit"), Frame(fr))
+        wrote = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        seq = check_seq(tmp)[0]
+        open_s = time.perf_counter() - t0
+        report, reg_s, gstats, stats_s = timed_registration(dev, seq)
+        if report.registered != f:
+            fail(f"phase10b: {report.registered} of {f} frames registered")
+        rseq = [s for s in check_seq(tmp) if s.seqname == report.new_seqname]
+        if len(rseq) != 1 or rseq[0].number != f or \
+                not os.path.exists(os.path.join(tmp, report.new_seqname + ".seq")):
+            fail("phase10b: the r_ sequence or its .seq file is missing")
+        rseq = rseq[0]
+        rs.launches.update(dict.fromkeys(rs.launches, 0))
+        t0 = time.perf_counter()
+        res = api.stack_sequence(rseq, device=dev, method="mean", rejection="sigma",
+                                 sig=sig, stream=False)
+        stack_s = time.perf_counter() - t0
+        launches = dict(rs.launches)
+        rec.count(launches, "stack_sequence of the r_ sequence", "sigma")
+        mem = []
+        global_star.register_global_star(
+            internal_sequence([Frame(fr) for fr in disk]), 0, device=dev,
+            write_output=False, output_frames=mem)
+        for i in range(f):
+            if not np.array_equal(rseq.read_frame(i).data, mem[i].data):
+                fail(f"phase10b: r_ frame {i} differs from the in-memory run's")
+    want = api.stack_frames(np.stack([m.data for m in mem]), device=dev,
+                            method="mean", rejection="sigma", sig=sig,
+                            normalize="none")
+    errs = [int(np.abs(res.data.astype(np.int64) - want.data).max()),
+            int(np.abs(res.rejection_low - want.rejection_low).max()),
+            int(np.abs(res.rejection_high - want.rejection_high).max())]
+    rec.check("sigma", errs, "phase10b stack_sequence vs stack_frames")
+    print(f"phase10b {f}x{h}x{w} FITS files ({wrote:.3f} s to write): check_seq "
+          f"{open_s:.3f} s; register_global_star writing the r_ sequence: "
+          + registration_line(gstats, stats_s, f, reg_s)
+          + f"; r_ frames read back equal to the in-memory run's; "
+          f"stack_sequence(mean, sigma {sig}) {stack_s:.3f} s, launches={launches}, "
+          f"image+counters vs stack_frames max|diff|={max(errs)}; "
+          f"{f / (open_s + reg_s + stack_s):.3f} frames/s from the open [{card}]",
+          flush=True)
+
+
+def phase10c(dev, card, host, planted):
+    """The warp alone at config 4's layer size: times, and the card against
+    the CPU."""
+    import torch
+    from siriltpu_torch.ops import warp
+    from siriltpu_torch.utils.interop import frames_from_numpy, u16_to_numpy
+
+    _, _, h, w = host.shape
+    layer = frames_from_numpy(host[1, 0], dev)
+    H = planted[1]
+    nbytes = 2 * 2 * h * w
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    names = {warp.INTER_NEAREST: "nearest", warp.INTER_LINEAR: "linear",
+             warp.INTER_CUBIC: "cubic", warp.INTER_LANCZOS4: "lanczos4"}
+    ms = {}
+    for interp, name in names.items():
+        ms[name], _ = cuda_ms(lambda: warp.warp_layer_dev(layer, H, (h, w), interp))
+    # a yardstick the port does not call: one fused library sampler on the
+    # same source coordinates (align_corners=True maps pixel centres)
+    Hinv = torch.from_numpy(np.linalg.inv(H).astype(np.float32)).to(dev)
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    den = Hinv[2, 0] * xx + Hinv[2, 1] * yy + Hinv[2, 2]
+    xs = (Hinv[0, 0] * xx + Hinv[0, 1] * yy + Hinv[0, 2]) / den
+    ys = (Hinv[1, 0] * xx + Hinv[1, 1] * yy + Hinv[1, 2]) / den
+    grid = torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1], -1)[None]
+    img = layer.view(torch.int16).flip(0).to(torch.int32).bitwise_and(0xFFFF)
+    img = img.to(torch.float32)[None, None]
+    lib = {}
+    for mode in ("nearest", "bilinear", "bicubic"):
+        lib[mode], _ = cuda_ms(lambda: torch.nn.functional.grid_sample(
+            img, grid, mode=mode, padding_mode="zeros", align_corners=True))
+    print(f"timing [{card}] warp_layer_dev of one {h}x{w} layer (CUDA events, "
+          f"median of {REPS} warm runs): "
+          + " ".join(f"{k}_ms={v:.3f}" for k, v in ms.items())
+          + f"; bound {bound:.4f} ms ({nbytes} bytes: a uint16 read and a uint16 "
+          f"write a pixel at {HBM_BYTES_PER_S:.3g} B/s); torch grid_sample on "
+          f"float32 (not called by the port) "
+          + " ".join(f"{k}_ms={v:.3f}" for k, v in lib.items()), flush=True)
+    del layer, img, grid, xs, ys, den
+    torch.cuda.empty_cache()
+
+    two, Hs = host[1:3, 0], planted[1:3]
+    diffs = {}
+    for interp in (0, 1, 2, 3, 4):
+        t0 = time.perf_counter()
+        got = u16_to_numpy(warp.warp_batch_dev(two, Hs, (h, w), interp, device=dev))
+        want = u16_to_numpy(warp.warp_batch_dev(two, Hs, (h, w), interp, device="cpu"))
+        d = np.abs(got.astype(np.int64) - want)
+        diffs[interp] = (int(d.max()), int((d != 0).sum()),
+                         round(time.perf_counter() - t0, 3))
+        if d.max() > (1 if interp == warp.INTER_LANCZOS4 else 0):
+            fail(f"phase10c: the card's warp (interpolation {interp}) against the "
+                 f"CPU's: max|diff| {d.max()} on {int((d != 0).sum())} words")
+    print(f"phase10c warp_batch_dev of 2 frames of {h}x{w}, card against "
+          f"device=cpu, per interpolation (max|diff|, words differing, s of both): "
+          f"{diffs}", flush=True)
+
+
+def phase10(rs, rec, dev, card):
+    import torch
+    from siriltpu_torch.utils.interop import u16_to_numpy
+
+    t0 = time.perf_counter()
+    frames, planted = make_config4_frames(*CONFIG4, seed=6, dev=dev)
+    host = u16_to_numpy(frames)
+    del frames
+    torch.cuda.empty_cache()
+    print(f"phase10 frames {host.shape} made on the card and copied to the host "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    phase10a(rs, rec, dev, card, host, planted)
+    phase10b(rs, rec, dev, card, np.ascontiguousarray(host[:CONFIG4_DISK, :1]))
+    phase10c(dev, card, host, planted)
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases", default="", metavar="N,N",
-        help="run only these of the phases 3 to 9, after the device and "
+        help="run only these of the phases 3 to 10, after the device and "
              "build phases (to compare two trees in one call; phase 8 "
              "brings phases 6 and 7 with it); such a run prints its timing "
              "lines and no result")
@@ -1239,6 +1608,11 @@ def main(argv=None) -> int:
         print(f"phase9b done at {time.perf_counter() - t_start:.1f} s", flush=True)
         phase9c(dev, card)
         print(f"phase9c done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- 10. global star registration: BASELINE config 4
+    if wanted(10):
+        phase10(rs, rec, dev, card)
+        torch.cuda.empty_cache()
+        print(f"phase10 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} only: no result", flush=True)
         return 0

@@ -1,15 +1,28 @@
 """siriltpu_torch — the PyTorch + CUDA port of siriltpu for NVIDIA Hopper.
 
 The package mirrors ``siriltpu``'s module paths so that every function has
-an obvious counterpart:
+an obvious counterpart in ``siriltpu.<same path>``:
 
-- ``utils.rounding``            <- ``siriltpu.utils.rounding``
-- ``ops.sortnet``               <- ``siriltpu.ops.sortnet``
-- ``ops.rejection``             <- ``siriltpu.ops.rejection`` (sigma subset)
-- ``ops.cuda.reject_stack``     <- ``siriltpu.ops.pallas.reject_stack``
-- ``ops.fftreg``                <- ``siriltpu.ops.fftreg``
-- ``ops.quality``               <- ``siriltpu.ops.quality``
-- ``pipelines.register_stack``  <- ``siriltpu.pipelines.register_stack``
+- ``core.frame``, ``core.memory``: frames, sequence records, memory budgets;
+- ``io.fits``, ``io.ser``, ``io.seqfile``, ``io.sequence``: FITS and SER
+  files, ``.seq`` files, sequences (films and CFA debayering aside);
+- ``ops.rejection`` (every rejection, linearfit included), ``ops.sortnet``,
+  ``ops.stack``, ``ops.shift``, ``ops.stats``: stacking's per-pixel work;
+- ``ops.cuda.reject_stack`` <- ``siriltpu.ops.pallas.reject_stack``: the
+  five CUDA rejection kernels of ``csrc/``;
+- ``ops.fftreg``, ``ops.quality``, ``ops.interp``, ``ops.ecc``: DFT and ECC
+  registration and frame quality;
+- ``ops.wavelets``, ``ops.psf``, ``ops.photometry``, ``ops.starfind``: star
+  detection;
+- ``ops.warp``: the perspective warp of global registration (gather only);
+- ``registration.translation``, ``registration.onestar``,
+  ``registration.matching``, ``registration.ransac``,
+  ``registration.global_star``: the registration entry points;
+- ``stacking.api``, ``pipelines.register_stack``: the stacking entry points;
+- ``verify.oracle``: the rejection part of the NumPy oracle;
+- ``utils.rounding``; and, of the port alone, ``utils.interop`` (data
+  crossing between the packages, uint16 at the boundary) and ``utils.build``
+  (the CUDA build).
 
 It imports torch and numpy only, never JAX or ``siriltpu``. The CUDA
 sources under ``csrc/`` are compiled with ``nvcc`` at first CUDA use

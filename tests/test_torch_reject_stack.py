@@ -244,7 +244,9 @@ def test_port_imports_without_jax_or_siriltpu():
         "          'io.fits', 'io.ser', 'io.seqfile', 'io.sequence',\n"
         "          'registration.translation', 'registration.onestar',\n"
         "          'verify.oracle', 'ops.interp', 'ops.ecc', 'ops.wavelets',\n"
-        "          'ops.psf', 'ops.photometry', 'ops.starfind'):\n"
+        "          'ops.psf', 'ops.photometry', 'ops.starfind', 'ops.warp',\n"
+        "          'registration.matching', 'registration.ransac',\n"
+        "          'registration.global_star'):\n"
         "    assert 'siriltpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=PKG_ROOT)
     proc = subprocess.run([sys.executable, "-c", code], env=env,
