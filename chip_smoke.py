@@ -120,6 +120,34 @@ exits non-zero without printing a result:
     Prints frames/s of each registration with the seconds of its file
     reads, host statistics, peaker_batch on the card, host matching and
     RANSAC, warp, copy to the host and output, and the stack's seconds.
+11. BASELINE config 5, SER convert -> background extraction -> register ->
+    rejection stack -> autostretch (plain PyTorch and host NumPy but for
+    the winsorized kernel of its stack):
+    a. 12 RGB frames of 6144 x 4096 made on the card (sky 800 with noise 6
+       in each channel, a linear sky gradient of up to ~3900 counts, 400
+       round Gaussian stars with phase 10's channel gains, each frame's
+       stars moved through a planted homography: rotation in [-0.5, 0.5]
+       degrees, shift in [-5, 5] px), mosaiced to RGGB and written as a
+       CFA SER in a temporary directory, then config5_pipeline(debayer=True,
+       layer 1, winsorized (3, 3), bg_order 4) on the card. Every frame must
+       register, every homography map the frame's corners within 0.1 px
+       of the planted one's, the bkg_ frames' corner-to-corner spread stay
+       under 10% of the raw frames', the winsorized stack of the r_
+       frames (stack_frames) equal its plain version on the card (image
+       and counters), the output FITS equal that stack stretched by hand,
+       and each channel of the stack, stretched alone, have its median in
+       0.15-0.40 x 65535 (the pipeline's stretch links the channels, whose
+       backgrounds the debayer's black border sets tens of counts apart, so
+       its output's median lies far from the target, as in the reference).
+       Prints the stage and overlap seconds, frames/s from the open of
+       the file to the written FITS, and the size of the bkg_ and r_
+       files, which are removed at the phase's end;
+    b. demosaicing one such CFA frame: bilinear, nearest and super-pixel
+       on the host (host clock), VNG and AHD on the card (vng_torch,
+       ahd_torch; CUDA events), median of 3 warm runs, beside the bytes
+       bound of the card's methods; the card's VNG bit-equal to the NumPy
+       vng, its AHD equal to the NumPy ahd on all but 1e-5 of the words
+       (the float32 colour transform's knife-edges, PARITY.md #7).
 
 Each stack of phases 6-7 runs once with every launch count set to 0: its
 kernel must have launched, and the image and per-channel counters must be
@@ -139,6 +167,7 @@ the last line is {"ok": true, "device": {...}}.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -182,6 +211,13 @@ CONFIG4_DISK = 16
 ROT4, SHIFT4 = 0.5, 8.0
 GAINS4 = (1.0, 0.8, 0.6)
 BATCH4 = 8
+#: phase 11: BASELINE config 5 (frames, layers, height, width), its stars,
+#: sky, noise, planted shift bound (px) and the sky gradient's slopes (a
+#: fraction of 65535 across the width and across the height)
+CONFIG5 = (12, 3, 4096, 6144)
+NSTARS5 = 400
+SKY5, NOISE5, SHIFT5 = 800.0, 6.0, 5.0
+GRAD5 = (0.04, 0.02)
 LF_SAMPLE = 2000
 CHUNK = 1 << 20
 REPS = 3
@@ -1157,22 +1193,25 @@ def phase9c(dev, card):
           f"[{card}]", flush=True)
 
 
-def planted_homographies(f: int, rng) -> np.ndarray:
+def planted_homographies(f: int, rng, shift: float = SHIFT4) -> np.ndarray:
     """(F, 3, 3) top-down homographies frame -> reference: a rotation in
-    [-ROT4, ROT4] degrees about the origin and a shift in [-SHIFT4, SHIFT4]
+    [-ROT4, ROT4] degrees about the origin and a shift in [-shift, shift]
     px, scale 1; frame 0 the identity."""
     ang = np.deg2rad(rng.uniform(-ROT4, ROT4, f))
     Hs = np.tile(np.eye(3), (f, 1, 1))
     Hs[:, 0, 0] = Hs[:, 1, 1] = np.cos(ang)
     Hs[:, 0, 1], Hs[:, 1, 0] = -np.sin(ang), np.sin(ang)
-    Hs[:, :2, 2] = rng.uniform(-SHIFT4, SHIFT4, (f, 2))
+    Hs[:, :2, 2] = rng.uniform(-shift, shift, (f, 2))
     Hs[0] = np.eye(3)
     return Hs
 
 
-def make_config4_frames(f: int, c: int, h: int, w: int, seed: int, dev):
+def make_config4_frames(f: int, c: int, h: int, w: int, seed: int, dev, *,
+                        nstars: int = NSTARS, sky: float = 1000.0,
+                        noise: float = 10.0, shift: float = SHIFT4, gradient=None):
     """(F, C, H, W) uint16 bottom-up frames made on the card: in each
-    channel a sky of 1000 with noise of 10 counts and NSTARS round Gaussian
+    channel a sky of ``sky`` (plus ``gradient``, an (H, W) tensor, if
+    given) with noise of ``noise`` counts and ``nstars`` round Gaussian
     stars (B + gain A exp(-r^2 / S)) at least 48 px apart, each frame's star
     positions the reference's moved through the inverse of its planted
     homography (planted_homographies). Returns the frames and the (F, 3, 3)
@@ -1183,19 +1222,19 @@ def make_config4_frames(f: int, c: int, h: int, w: int, seed: int, dev):
     rng = np.random.default_rng(seed)
     margin = 64
     pos = np.zeros((0, 2))
-    while len(pos) < NSTARS:
+    while len(pos) < nstars:
         cand = rng.uniform((margin, margin), (w - margin, h - margin), (1, 2))
         if not len(pos) or np.hypot(*(pos - cand).T).min() >= 48:
             pos = np.concatenate([pos, cand])
-    amp = rng.uniform(4000, 40000, NSTARS)
-    spread = rng.uniform(4.0, 12.0, NSTARS)
-    Hs = planted_homographies(f, rng)
+    amp = rng.uniform(4000, 40000, nstars)
+    spread = rng.uniform(4.0, 12.0, nstars)
+    Hs = planted_homographies(f, rng, shift)
     pad = 64
     span = torch.arange(-15, 16, device=dev)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     frames = torch.empty((f, c, h, w), dtype=torch.int16, device=dev)
-    ref_td = np.column_stack([pos, np.ones(NSTARS)])
+    ref_td = np.column_stack([pos, np.ones(nstars)])
     for i in range(f):
         ph = ref_td @ np.linalg.inv(Hs[i]).T
         x, y_td = ph[:, 0] / ph[:, 2], ph[:, 1] / ph[:, 2]
@@ -1206,12 +1245,13 @@ def make_config4_frames(f: int, c: int, h: int, w: int, seed: int, dev):
         xs = (cx[:, None] + span[None, :])[:, None, :].expand(-1, 31, -1)
         r2 = (ys - t[:, 1, None, None]) ** 2 + (xs - t[:, 0, None, None]) ** 2
         stars = t[:, 2, None, None] * torch.exp(-r2 / t[:, 3, None, None])
-        sky = torch.zeros((h + 2 * pad, w + 2 * pad), device=dev)
-        sky.index_put_((ys + pad, xs + pad), stars.to(torch.float32), accumulate=True)
-        core = sky[pad:pad + h, pad:pad + w]
+        scene = torch.zeros((h + 2 * pad, w + 2 * pad), device=dev)
+        scene.index_put_((ys + pad, xs + pad), stars.to(torch.float32), accumulate=True)
+        core = scene[pad:pad + h, pad:pad + w]
         for ch, gain in enumerate(GAINS4[:c]):
-            noise = torch.randn((h, w), generator=g, device=dev)
-            noisy = 1000.0 + gain * core + 10.0 * noise
+            noisy = sky + gain * core + noise * torch.randn((h, w), generator=g, device=dev)
+            if gradient is not None:
+                noisy += gradient
             frames[i, ch] = i32_to_u16(torch.round(noisy).clamp(0, 65535)).view(torch.int16)
     return frames.view(torch.uint16), Hs
 
@@ -1490,12 +1530,251 @@ def phase10(rs, rec, dev, card):
     phase10c(dev, card, host, planted)
 
 
+def mosaic_rggb_bu(frame):
+    """An RGGB mosaic of a (3, H, W) bottom-up uint16 tensor, laid over
+    the top-down rows a SER file stores: (H, W) int16 bits, bottom-up
+    again."""
+    import torch
+    td = frame.view(torch.int16).flip(1)
+    m = torch.empty(td.shape[1:], dtype=torch.int16, device=td.device)
+    m[0::2, 0::2] = td[0, 0::2, 0::2]
+    m[0::2, 1::2] = td[1, 0::2, 1::2]
+    m[1::2, 0::2] = td[1, 1::2, 0::2]
+    m[1::2, 1::2] = td[2, 1::2, 1::2]
+    return m.flip(0)
+
+
+def make_config5_ser(path: str, dev):
+    """CONFIG5's RGB star frames made on the card, mosaiced to RGGB and
+    written as a CFA SER at ``path``. Returns the (F, 3, 3) planted
+    homographies and the seconds to make and to write the file."""
+    import torch
+    from siriltpu_torch.core.frame import Frame
+    from siriltpu_torch.io.ser import SER_BAYER_RGGB, SerFile
+    from siriltpu_torch.utils.interop import u16_to_numpy
+
+    f, c, h, w = CONFIG5
+    t0 = time.perf_counter()
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    gradient = GRAD5[0] * (xx * 65535.0 / w) + GRAD5[1] * (yy * 65535.0 / h)
+    frames, planted = make_config4_frames(f, c, h, w, seed=11, dev=dev, nstars=NSTARS5,
+                                          sky=SKY5, noise=NOISE5, shift=SHIFT5,
+                                          gradient=gradient)
+    cfa = u16_to_numpy(torch.stack([mosaic_rggb_bu(fr) for fr in frames]).view(torch.uint16))
+    del frames, gradient
+    torch.cuda.empty_cache()
+    made = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ser = SerFile.create(path, width=w, height=h, color_id=SER_BAYER_RGGB)
+    for fr in cfa:
+        ser.write_frame(Frame(fr[None]))
+    ser.write_and_close()
+    return planted, cfa[0, ::-1].copy(), made, time.perf_counter() - t0
+
+
+def corner_spread(img) -> float:
+    """|median of the top-left 20 x 20 corner - median of the bottom-right
+    one|, inside the 1-pixel border the bilinear debayer leaves black (the
+    JAX test's criterion, tests/test_full_pipeline.py)."""
+    img = img.astype(np.float64)
+    return abs(float(np.median(img[2:22, 2:22])) - float(np.median(img[-22:-2, -22:-2])))
+
+
+def phase11a(rs, rec, dev, card, tmp):
+    """Config 5 from a CFA SER: config5_pipeline on the card, and its
+    checks. Returns the planted homographies' CFA frame 0 (top-down) for
+    phase 11b."""
+    import torch
+    from siriltpu_torch.io.fits import read_fits
+    from siriltpu_torch.io.sequence import ser_sequence
+    from siriltpu_torch.ops.histogram_ops import autostretch
+    from siriltpu_torch.ops.rejection import reject_and_mean
+    from siriltpu_torch.pipelines.full import config5_pipeline
+    from siriltpu_torch.registration import global_star
+    from siriltpu_torch.stacking import api
+    from siriltpu_torch.utils.interop import frames_from_numpy
+
+    f, c, h, w = CONFIG5
+    path = os.path.join(tmp, "lights.ser")
+    planted, cfa0, made_s, wrote_s = make_config5_ser(path, dev)
+    print(f"phase11a {f} RGB frames of {w}x{h} made on the card and mosaiced in "
+          f"{made_s:.2f} s; the RGGB SER ({os.path.getsize(path)} bytes) written in "
+          f"{wrote_s:.2f} s; {shutil.disk_usage(tmp).free} bytes free there [{card}]",
+          flush=True)
+
+    # the registration's report, which config5_pipeline keeps to itself
+    reports, register = [], global_star.register_global_star
+
+    def kept(*args, **kwargs):
+        reports.append(register(*args, **kwargs))
+        return reports[-1]
+
+    sig = SIGS["winsorized"]
+    global_star.register_global_star = kept
+    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    try:
+        t0 = time.perf_counter()
+        rep = config5_pipeline(path, device=dev, layer=1, rejection="winsorized",
+                               sig=sig, debayer=True)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    finally:
+        global_star.register_global_star = register
+    launches = dict(rs.launches)
+    rec.count(launches, "config5_pipeline", "winsorized")
+    gstats = dict(global_star.global_stats)
+    if rep.registered != f or rep.failed:
+        fail(f"phase11a: {rep.registered} of {f} frames registered, {rep.failed} failed")
+    errs = [corner_error(H, p, h, w) for H, p in zip(reports[0].homographies, planted)]
+    if max(errs) > 0.1:
+        fail(f"phase11a: frame {int(np.argmax(errs))}'s homography moves a corner "
+             f"{max(errs):.4f} px from the planted one's")
+    sizes = {name: os.path.getsize(os.path.join(tmp, name))
+             for name in ("bkg_lights.ser", "r_bkg_lights.ser")}
+    print(f"phase11a config5_pipeline {f}x{c}x{h}x{w} from the RGGB SER (debayer "
+          f"bilinear, bg_order 4, global registration on layer 1, mean winsorized "
+          f"{sig}): {sec:.3f} s, {f / sec:.4f} frames/s from the open of the file to "
+          f"the written FITS (one run, host clock); stage_seconds "
+          f"{ {k: round(v, 3) for k, v in rep.stage_seconds.items()} }; overlap_seconds "
+          f"of bgextract { {k: round(v, 3) for k, v in rep.overlap_seconds.items()} }; "
+          f"registration {({k: round(v, 3) for k, v in gstats.items()})}; launches="
+          f"{launches}; {f} registered, corners within {max(errs):.5f} px of the planted "
+          f"homographies (median {np.median(errs):.5f}); autostretch m "
+          f"{[round(m, 6) for m in rep.autostretch_m]}; intermediate files {sizes} "
+          f"bytes [{card}]", flush=True)
+
+    raw0 = ser_sequence(path, debayer=True, debayer_device=dev).read_frame(0).data
+    bkg0 = ser_sequence(os.path.join(tmp, "bkg_lights.ser")).read_frame(0).data
+    spreads = [(corner_spread(bkg0[ch]), corner_spread(raw0[ch])) for ch in range(c)]
+    if any(b >= 0.1 * r for b, r in spreads):
+        fail(f"phase11a: bkg_ frame 0's corner spread against the raw frame's, per "
+             f"channel: {spreads}")
+    del raw0, bkg0
+
+    rseq = ser_sequence(os.path.join(tmp, "r_bkg_lights.ser"))
+    regged = np.stack([rseq.read_frame(i).data for i in range(rseq.number)])
+    t0 = time.perf_counter()
+    res = api.stack_frames(regged, device=dev, method="mean", rejection="winsorized",
+                           sig=sig, normalize="none")
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    vals = frames_from_numpy(regged, dev).view(torch.int16)
+    del regged
+    perrs = []
+    t0 = time.perf_counter()
+    for ch in range(c):
+        flat = vals[:, ch].reshape(f, -1).view(torch.uint16)
+        got = frames_from_numpy(res.data[ch], dev).reshape(-1)
+        rl = rh = 0
+        for a in range(0, flat.shape[1], CHUNK):
+            pm, pl, ph = reject_and_mean(flat[:, a:a + CHUNK], "winsorized", sig)
+            perrs.append(max_abs_diff(got[a:a + CHUNK], pm))
+            rl += int(pl.sum())
+            rh += int(ph.sum())
+        perrs += [abs(int(res.rejection_low[ch]) - rl), abs(int(res.rejection_high[ch]) - rh)]
+    plain_s = time.perf_counter() - t0
+    del vals, flat
+    torch.cuda.empty_cache()
+    rec.check("winsorized", perrs, "phase11a stack_frames of the r_ frames")
+    out = read_fits(rep.output_path).data
+    if not np.array_equal(out, autostretch(res.data)):
+        fail("phase11a: the output FITS differs from the r_ stack stretched by hand")
+    # the autostretch links the channels (one (m, lo, hi) for all), and the
+    # debayer's black border sets each channel's offset in bgextract (its
+    # |min|) tens of counts apart, against a noise of ~2 counts: the linked
+    # result's median lands far from the 0.25 target, as in the reference.
+    # Each channel stretched alone must land near it.
+    med = float(np.median(out))
+    alone = [float(np.median(autostretch(res.data[ch:ch + 1]))) for ch in range(c)]
+    if not all(0.15 * 65535 < m < 0.40 * 65535 for m in alone):
+        fail(f"phase11a: each channel's stack stretched alone has median {alone}")
+    print(f"phase11a bkg_ frame 0's corner spread per channel "
+          f"{[round(b, 1) for b, _ in spreads]} against the raw frame's "
+          f"{[round(r, 1) for _, r in spreads]}; stack_frames(mean, winsorized {sig}) of "
+          f"the r_ frames {stack_s:.3f} s, image+counters vs plain max|diff|="
+          f"{max(perrs)} (plain {plain_s:.3f} s), rejected low "
+          f"{res.rejection_low.tolist()} high {res.rejection_high.tolist()}; output FITS "
+          f"equal to it stretched by hand; medians of the output {med:.1f} "
+          f"({med / 65535:.4f} x 65535), per channel "
+          f"{[float(np.median(out[ch])) for ch in range(c)]}, of each channel's stack "
+          f"stretched alone {alone}; the stack's channel medians "
+          f"{[float(np.median(res.data[ch])) for ch in range(c)]} [{card}]", flush=True)
+    return cfa0
+
+
+def host_ms(fn, reps: int = REPS):
+    """Median host-clock ms of ``fn()`` over ``reps`` warm runs, and the
+    last run's result."""
+    out = fn()  # warm-up
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def phase11b(dev, card, cfa):
+    """Demosaicing one config-5 CFA frame (top-down, as a SER stores it):
+    the host methods and the card's, timed; the card's against the NumPy
+    programs."""
+    import torch
+    from siriltpu_torch.ops import demosaic
+    from siriltpu_torch.utils.interop import frames_from_numpy, u16_to_numpy
+
+    h, w = cfa.shape
+    ms = {m: host_ms(lambda m=m: getattr(demosaic, m)(cfa, "RGGB"))[0]
+          for m in ("bilinear", "nearest", "super_pixel")}
+    t = frames_from_numpy(cfa, dev)
+    vng_ms, vout = cuda_ms(lambda: demosaic.vng_torch(t, "RGGB"))
+    ahd_ms, aout = cuda_ms(lambda: demosaic.ahd_torch(t, "RGGB"))
+    vout, aout = u16_to_numpy(vout), u16_to_numpy(aout)
+    del t
+    torch.cuda.empty_cache()
+    nbytes = (2 + 3 * 2) * h * w
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"timing [{card}] demosaic of one {w}x{h} RGGB frame (median of {REPS} warm "
+          f"runs): on the host (host clock) "
+          + " ".join(f"{k}_ms={v:.3f}" for k, v in ms.items())
+          + f"; on the card (CUDA events) vng_torch_ms={vng_ms:.3f} "
+          f"ahd_torch_ms={ahd_ms:.3f}; bytes bound of a card method {bound:.4f} ms "
+          f"({nbytes} bytes: the uint16 CFA read once, three uint16 planes written "
+          f"once, at {HBM_BYTES_PER_S:.3g} B/s)", flush=True)
+    t0 = time.perf_counter()
+    vh = demosaic.vng(cfa, "RGGB")
+    vng_s = time.perf_counter() - t0
+    if not np.array_equal(vout, vh):
+        fail(f"phase11b: the card's VNG differs from the NumPy vng on "
+             f"{int((vout != vh).sum())} words")
+    del vh
+    t0 = time.perf_counter()
+    ah = demosaic.ahd(cfa, "RGGB")
+    ahd_s = time.perf_counter() - t0
+    d = np.abs(aout.astype(np.int64) - ah)
+    ndiff = int((d != 0).sum())
+    if ndiff > 1e-5 * d.size:
+        fail(f"phase11b: the card's AHD differs from the NumPy ahd on {ndiff} words "
+             f"(max {int(d.max())})")
+    print(f"phase11b card against the host: vng_torch equal to the NumPy vng "
+          f"({vng_s:.3f} s on the host); ahd_torch against the NumPy ahd ({ahd_s:.3f} s "
+          f"on the host): {ndiff} of {d.size} words differ, max|diff| {int(d.max())} "
+          f"[{card}]", flush=True)
+
+
+def phase11(rs, rec, dev, card):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfa0 = phase11a(rs, rec, dev, card, tmp)
+    print("phase11a the temporary directory and its files removed", flush=True)
+    phase11b(dev, card, cfa0)
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases", default="", metavar="N,N",
-        help="run only these of the phases 3 to 10, after the device and "
+        help="run only these of the phases 3 to 11, after the device and "
              "build phases (to compare two trees in one call; phase 8 "
              "brings phases 6 and 7 with it); such a run prints its timing "
              "lines and no result")
@@ -1613,6 +1892,11 @@ def main(argv=None) -> int:
         phase10(rs, rec, dev, card)
         torch.cuda.empty_cache()
         print(f"phase10 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- 11. BASELINE config 5: debayer, bgextract, register, stack, stretch
+    if wanted(11):
+        phase11(rs, rec, dev, card)
+        torch.cuda.empty_cache()
+        print(f"phase11 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} only: no result", flush=True)
         return 0

@@ -2,9 +2,10 @@
 data and cached statistics.
 
 Port of ``siriltpu.io.sequence``, which is NumPy already: copied without
-change, but for films: their reader (``io/films.py``) is not ported yet,
-so ``check_seq`` raises ``NotImplementedError`` on a directory
-that holds one.
+change, but for two things. Films: their reader (``io/films.py``) is not
+ported yet, so ``check_seq`` raises ``NotImplementedError`` on a directory
+that holds one. And a SER sequence carries ``debayer_device``, the device
+its reads debayer a large frame on by VNG or AHD (``ops/demosaic.py``).
 
 Reference: src/io/sequence.c (struct sequ src/core/siril.h:328-374,
 discovery ``check_seq`` :145-280, frame access :519-690, stats cache
@@ -59,6 +60,7 @@ class Sequence:
     debayer: bool = False
     bayer_pattern: Optional[str] = None
     bayer_method: str = "bilinear"
+    debayer_device: Optional[str] = None
 
     # --------------------------------------------------------------- naming
 
@@ -88,7 +90,8 @@ class Sequence:
             self._open_ser()
             frame = self.ser.read_frame(index, debayer=self.debayer,
                                         bayer_pattern=self.bayer_pattern,
-                                        bayer_method=self.bayer_method)
+                                        bayer_method=self.bayer_method,
+                                        device=self.debayer_device)
         else:
             frame = fits_io.read_fits(self.image_path(index))
         self._ensure_geometry(frame)
@@ -106,7 +109,8 @@ class Sequence:
             self._open_ser()
             return self.ser.read_opened_partial(
                 layer, index, area, debayer=self.debayer,
-                bayer_pattern=self.bayer_pattern, bayer_method=self.bayer_method)
+                bayer_pattern=self.bayer_pattern, bayer_method=self.bayer_method,
+                device=self.debayer_device)
         return fits_io.read_fits_partial(self.image_path(index), layer, area)
 
     def _open_ser(self) -> None:
@@ -178,13 +182,15 @@ def internal_sequence(frames: List[Frame], name: str = "internal") -> Sequence:
 
 
 def ser_sequence(path: str, *, debayer: bool = False,
-                 bayer_pattern: Optional[str] = None) -> Sequence:
+                 bayer_pattern: Optional[str] = None,
+                 debayer_device=None) -> Sequence:
     ser = SerFile.open(path)
     base = os.path.basename(path)
     name = base[:-4] if base.lower().endswith(".ser") else base
     seq = Sequence(seqname=name, seqtype="ser", number=ser.frame_count,
                    selnum=ser.frame_count, seq_dir=os.path.dirname(os.path.abspath(path)) or ".",
-                   ser=ser, debayer=debayer, bayer_pattern=bayer_pattern)
+                   ser=ser, debayer=debayer, bayer_pattern=bayer_pattern,
+                   debayer_device=debayer_device)
     seq.imgparam = [ImgParam(filenum=i) for i in range(ser.frame_count)]
     seq.rx = ser.header.width
     seq.ry = ser.header.height

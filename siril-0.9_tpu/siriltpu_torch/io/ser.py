@@ -1,11 +1,10 @@
 """SER v2/v3 video file reader/writer.
 
 Port of ``siriltpu.io.ser``, which is NumPy already: copied without
-change, but for two things. Debayering a CFA file on read needs
-``ops/demosaic.py``, which is not ported yet:
-``debayer=True`` on such a file raises ``NotImplementedError``; without it
-a CFA file reads as mono, as in the reference. And a partial read of a
-mono file whose area spans the full width reads its rows in one piece.
+change, but for two things. The reads that debayer a CFA file take the
+``device`` that ``ops/demosaic.py`` runs VNG and AHD on for frames of
+2^20 pixels or more (None refuses those). And a partial read of a mono
+file whose area spans the full width reads its rows in one piece.
 
 Reference: src/io/ser.c, src/io/ser.h.
 
@@ -56,11 +55,6 @@ SER_BGR = 101
 BAYER_IDS = (SER_BAYER_RGGB, SER_BAYER_GRBG, SER_BAYER_GBRG, SER_BAYER_BGGR)
 
 _HEADER_FMT = "<14siiiiiiI40s40s40sqq"
-
-_NO_DEBAYER = ("debayering a CFA SER file is not ported to siriltpu_torch yet: "
-               "it needs ops/demosaic.py; open it with debayer=False to "
-               "read the mosaic as mono")
-
 
 def _planes_for_color(color_id: int) -> int:
     return 3 if color_id in (SER_RGB, SER_BGR) else 1
@@ -226,11 +220,13 @@ class SerFile:
 
     def read_frame(self, frame_no: int, *, debayer: bool = False,
                    bayer_pattern: Optional[str] = None,
-                   bayer_method: str = "bilinear") -> Frame:
+                   bayer_method: str = "bilinear", device=None) -> Frame:
         """Read one frame as a bottom-up Frame (``ser_read_frame``, ser.c:649-769).
 
         Bayer SER files are returned mono unless ``debayer=True`` (the
-        ``open_debayer`` setting in the reference, ser.c:727-730).
+        ``open_debayer`` setting in the reference, ser.c:727-730);
+        ``device`` is where VNG and AHD debayer a large frame
+        (``ops.demosaic.debayer_buffer``).
         """
         h = self.header
         raw = self._read_raw_frame(frame_no)
@@ -243,7 +239,11 @@ class SerFile:
                 img = img[::-1]
             data = img
         elif color in BAYER_IDS:
-            raise NotImplementedError(_NO_DEBAYER)
+            from siriltpu_torch.ops.demosaic import debayer_buffer, pattern_from_ser
+            cfa = raw.reshape(h.height, h.width)
+            pat = bayer_pattern or pattern_from_ser(color)
+            data = debayer_buffer(cfa, pat, bayer_method,
+                                  device=device)  # (3,H,W) top-down
         elif color == SER_MONO:
             data = raw.reshape(1, h.height, h.width)
         else:
@@ -257,9 +257,10 @@ class SerFile:
     def read_opened_partial(self, layer: int, frame_no: int, area: Rect, *,
                             debayer: bool = False,
                             bayer_pattern: Optional[str] = None,
-                            bayer_method: str = "bilinear") -> np.ndarray:
+                            bayer_method: str = "bilinear", device=None) -> np.ndarray:
         """Read one layer's region, rows TOP-DOWN like the reference's
-        ``ser_read_opened_partial`` (ser.c:772-971)."""
+        ``ser_read_opened_partial`` (ser.c:772-971), including the
+        demosaic-window expansion logic for Bayer files (:820-913)."""
         h = self.header
         color = h.color_id
         if not debayer and color not in (SER_RGB, SER_BGR):
@@ -291,13 +292,39 @@ class SerFile:
             # row blocks it actually passes; divergence in PARITY.md)
             frame = self.read_frame(frame_no, debayer=debayer,
                                     bayer_pattern=bayer_pattern,
-                                    bayer_method=bayer_method)
+                                    bayer_method=bayer_method, device=device)
             layer_img = frame.data[layer][::-1]   # top-down for area coords
             return np.ascontiguousarray(
                 layer_img[area.y : area.y + area.h,
                           area.x : area.x + area.w])
 
-        raise NotImplementedError(_NO_DEBAYER)
+        # Bayer: the reference demosaics a WINDOW expanded by 2-3 px with
+        # parity preserved (get_debayer_area, demosaicing.c:787-843) and
+        # extracts the area from it. The expansion is narrower than VNG's
+        # effective support, so values on the first/last row of a block
+        # genuinely differ from a full-frame debayer — reproduced exactly
+        # (verified against the compiled C in test_c_goldens).
+        from siriltpu_torch.ops.demosaic import debayer_buffer, pattern_from_ser
+
+        def expand(pos, length, limit):
+            off = 3 if pos & 1 else 2
+            start = pos - off
+            if start < 0:
+                start, off = 0, pos
+            end = pos + length - 1
+            grow = 2 if end & 1 else 3
+            if end + grow >= limit:
+                grow = limit - end - 1
+            return start, off, length + (pos - start) + grow
+
+        wy0, yoff, wh = expand(area.y, area.h, h.height)
+        wx0, xoff, ww = expand(area.x, area.w, h.width)
+        raw = self._read_raw_frame(frame_no).reshape(h.height, h.width)
+        window = np.ascontiguousarray(raw[wy0 : wy0 + wh, wx0 : wx0 + ww])
+        pat = bayer_pattern or pattern_from_ser(color)
+        demo = debayer_buffer(window, pat, bayer_method, device=device)  # (3, wh, ww)
+        return np.ascontiguousarray(
+            demo[layer, yoff : yoff + area.h, xoff : xoff + area.w])
 
     # ----------------------------------------------------------------- write
 

@@ -3,8 +3,10 @@
 There are no learned weights in this system: what the two packages
 exchange is data — (F, H, W) uint16 frames, (F, 2) int32 shifts, the
 (siglow, sighigh) pair, star lists and PSF fits (``stars_to_fields``,
-``psf_fit_to_numpy``), and a sequence's state: its registration data,
-selection and cached statistics. On disk that state is the ``.seq`` file
+``psf_fit_to_numpy``), the settings of calibration and background
+extraction (``PreproConfig``, ``BackgroundParams``: ``config_to_fields``)
+and a master dark's deviant pixels (``deviants_to_fields``), and a
+sequence's state: its registration data, selection and cached statistics. On disk that state is the ``.seq`` file
 beside the SER or FITS files, which either package reads and writes; in
 memory it crosses as a dict of plain fields (``sequence_to_fields``,
 ``sequence_from_fields``). Tests hand both packages the same seeded NumPy
@@ -18,6 +20,8 @@ movement (copy, index, pad, ``where``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -156,8 +160,50 @@ def psf_fit_to_numpy(fit) -> dict:
                 else np.asarray(v)) for k, v in fit._asdict().items()}
 
 
+def config_to_fields(cfg) -> dict:
+    """A ``PreproConfig`` or ``BackgroundParams`` of either package as a
+    dict of its fields."""
+    return dataclasses.asdict(cfg)
+
+
+def prepro_config_from_fields(fields: dict):
+    """The port's ``PreproConfig`` from ``config_to_fields``' dict."""
+    from siriltpu_torch.pipelines.preprocess import PreproConfig
+
+    return PreproConfig(**fields)
+
+
+def background_params_from_fields(fields: dict):
+    """The port's ``BackgroundParams`` from ``config_to_fields``' dict."""
+    from siriltpu_torch.ops.background import BackgroundParams
+
+    return BackgroundParams(**fields)
+
+
+#: the fields of a cosmetic ``DeviantPixel`` of either package
+DEVIANT_COLUMNS = ("x", "y", "type")
+
+
+def deviants_to_fields(devs) -> dict:
+    """A deviant-pixel list of either package (``ops.cosmetic``) as a
+    dict of (N,) int64 columns, one per name of ``DEVIANT_COLUMNS``, in
+    the list's (scan) order."""
+    return {c: np.array([getattr(d, c) for d in devs], np.int64)
+            for c in DEVIANT_COLUMNS}
+
+
+def deviants_from_fields(fields: dict) -> list:
+    """The port's deviant-pixel list from ``deviants_to_fields``' dict."""
+    from siriltpu_torch.ops.cosmetic import DeviantPixel
+
+    return [DeviantPixel(*(int(fields[c][i]) for c in DEVIANT_COLUMNS))
+            for i in range(len(fields["x"]))]
+
+
 __all__ = ["u16_to_i32", "to_float32", "i32_to_u16", "frames_from_numpy",
            "u16_to_numpy", "shifts_to_numpy", "sequence_to_fields",
            "sequence_from_fields", "SEQUENCE_SCALARS", "REG_COLUMNS",
            "STATS_COLUMNS", "stars_to_fields", "stars_from_fields",
-           "psf_fit_to_numpy", "STAR_COLUMNS"]
+           "psf_fit_to_numpy", "STAR_COLUMNS", "config_to_fields",
+           "prepro_config_from_fields", "background_params_from_fields",
+           "DEVIANT_COLUMNS", "deviants_to_fields", "deviants_from_fields"]

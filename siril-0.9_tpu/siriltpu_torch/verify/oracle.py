@@ -1,9 +1,9 @@
 """NumPy float64 oracle: literal re-derivations of the reference C code's
 per-pixel rejection, the exact path that the linearfit hybrid re-runs its
 knife-edge pixels through (``ops.rejection.linearfit_hybrid_block``,
-``stacking.api``).
+``stacking.api``), and the shift gather of ``ops.imops.shift_image``.
 
-The port's own copy of that part of ``siriltpu.verify.oracle``.
+The port's own copy of those parts of ``siriltpu.verify.oracle``.
 Everything here favors clarity/exactness over speed. Each function cites
 the C code whose behavior it freezes.
 """
@@ -13,6 +13,21 @@ from __future__ import annotations
 import numpy as np
 
 from siriltpu_torch.utils.rounding import np_round_to_word
+
+
+def shift_gather(img: np.ndarray, shiftx: int, shifty: int,
+                 fill: int = 0, skip_origin: bool = True) -> np.ndarray:
+    """out[y,x] = img[y-shifty, x-shiftx] with bounds + ``ii > 0`` quirk
+    (stacking.c:298-312)."""
+    h, w = img.shape[-2:]
+    out = np.full_like(img, fill)
+    yy, xx = np.mgrid[0:h, 0:w]
+    iy, ix = yy - shifty, xx - shiftx
+    valid = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+    if skip_origin:
+        valid &= ~((iy == 0) & (ix == 0))
+    out[..., valid] = img[..., iy[valid], ix[valid]]
+    return out
 
 
 # --------------------------------------------------------- GSL helper stats
@@ -303,4 +318,4 @@ def normalize_pixel_vector(pix: np.ndarray, mode: str, scale, offset, mul) -> np
 
 
 __all__ = ["c_reject_block", "normalize_pixel_vector", "gsl_median_sorted",
-           "gsl_sd", "gsl_fit_linear"]
+           "gsl_sd", "gsl_fit_linear", "shift_gather"]

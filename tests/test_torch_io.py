@@ -292,10 +292,14 @@ def test_ser_cfa_reads_mono_and_debayer_names_its_roadmap_item(tmp_path):
     np.testing.assert_array_equal(
         got_file.read_opened_partial(0, 1, tframe.Rect(2, 2, 8, 8)),
         want_file.read_opened_partial(0, 1, jframe.Rect(2, 2, 8, 8)))
-    with pytest.raises(NotImplementedError, match="ops/demosaic.py"):
-        got_file.read_frame(0, debayer=True)
-    with pytest.raises(NotImplementedError, match="ops/demosaic.py"):
-        got_file.read_opened_partial(0, 0, tframe.Rect(2, 2, 8, 8), debayer=True)
+    # debayering on read is ported (ops/demosaic.py): equal to the JAX
+    # package's, whole frames and the expanded partial window alike
+    np.testing.assert_array_equal(got_file.read_frame(0, debayer=True, device="cpu").data,
+                                  want_file.read_frame(0, debayer=True).data)
+    np.testing.assert_array_equal(
+        got_file.read_opened_partial(0, 0, tframe.Rect(2, 2, 8, 8), debayer=True,
+                                     device="cpu"),
+        want_file.read_opened_partial(0, 0, jframe.Rect(2, 2, 8, 8), debayer=True))
 
 
 def test_ser_write_refuses_what_jax_refuses(tmp_path):

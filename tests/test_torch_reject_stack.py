@@ -246,7 +246,10 @@ def test_port_imports_without_jax_or_siriltpu():
         "          'verify.oracle', 'ops.interp', 'ops.ecc', 'ops.wavelets',\n"
         "          'ops.psf', 'ops.photometry', 'ops.starfind', 'ops.warp',\n"
         "          'registration.matching', 'registration.ransac',\n"
-        "          'registration.global_star'):\n"
+        "          'registration.global_star', 'ops.imops', 'ops.demosaic',\n"
+        "          'ops.cosmetic', 'ops.background', 'ops.histogram_ops',\n"
+        "          'ops.display', 'parallel.engine', 'pipelines.preprocess',\n"
+        "          'pipelines.full'):\n"
         "    assert 'siriltpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=PKG_ROOT)
     proc = subprocess.run([sys.executable, "-c", code], env=env,
