@@ -8,8 +8,8 @@ and ``unsharp`` (``ops/interp.py:sep_filter``), the wavelet plane of
 ``background_noise`` (``ops/wavelets.py``), the two matmuls of ``resize``
 (in full float32, never TF32) and the sampler of ``rotate``, which is the
 port's gather warp (``ops/warp.py``; the JAX package's tiled sampler is
-not ported). ``lrgb`` needs ``pipelines/compositing.py``, which is not
-ported yet, and raises ``NotImplementedError``.
+not ported). ``lrgb`` is the host NumPy ``compose`` of
+``pipelines/compositing.py``.
 
 Reference: src/core/siril.c:65-1862 — soper (:112), imoper (:150),
 fdiv (:252), ndiv (:278), addmax/addmin (:229), crop, mirrorx/y,
@@ -573,12 +573,17 @@ def background_noise(data: np.ndarray, *, device) -> np.ndarray:
 
 def lrgb(l: np.ndarray, r: np.ndarray, g: np.ndarray, b: np.ndarray
          ) -> np.ndarray:
-    """LRGB combination (siril.c lrgb :815-884): HSI composition of the
-    RGB channels with the luminance layer replacing intensity. Not ported
-    yet: it needs ``pipelines/compositing.py``."""
-    raise NotImplementedError(
-        "lrgb is not ported to siriltpu_torch yet: it needs "
-        "pipelines/compositing.py")
+    """LRGB combination (siriltpu.ops.imops.lrgb, siril.c lrgb
+    :815-884): HSI composition of the RGB channels with the luminance layer
+    replacing intensity. Host NumPy (``pipelines/compositing.py:compose``)."""
+    from siriltpu_torch.core.frame import Frame
+    from siriltpu_torch.pipelines.compositing import CompositionLayer, compose
+
+    layers = [CompositionLayer(Frame(r.reshape(1, *r.shape[-2:])), (1, 0, 0)),
+              CompositionLayer(Frame(g.reshape(1, *g.shape[-2:])), (0, 1, 0)),
+              CompositionLayer(Frame(b.reshape(1, *b.shape[-2:])), (0, 0, 1))]
+    out = compose(layers, luminance=Frame(l.reshape(1, *l.shape[-2:])))
+    return out.data
 
 
 __all__ = ["soper", "imoper", "fdiv", "ndiv", "addmax", "crop", "mirrorx",

@@ -210,6 +210,36 @@ def quality_estimate_batch(layers: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.cat(qs))
 
 
+def find_centre(layer: np.ndarray, eightbit: bool = False):
+    """Centre of brightness (quality.c _FindCentre_Barycentre:361-426,
+    FindCentre:437-444): barycentre of pixels whose value AND all four
+    4-neighbors reach THRESHOLD (quality.h:29, x256 for 16-bit data).
+    Scan window x in [2, rx-3], y in [1, ry-2] (edge guard). Returns
+    (x_avg, y_avg) with the +0.5 offsets and the bottom-up y flip of
+    the C code, or None when fewer than MinPixels=50 qualify.
+    ``layer`` is a bottom-up (H, W) plane like fit->data."""
+    a = np.asarray(layer)
+    h, w = a.shape
+    thr = 40 if eightbit else 40 * 256
+    x1, y1 = 2, 1
+    x2, y2 = min(w - 3, w - 2), min(h - 1, h - 2)
+    if x2 < x1 or y2 < y1:
+        return None
+    win = a[y1 : y2 + 1, x1 : x2 + 1]
+    ok = ((win >= thr)
+          & (a[y1 : y2 + 1, x1 - 1 : x2] >= thr)
+          & (a[y1 : y2 + 1, x1 + 1 : x2 + 2] >= thr)
+          & (a[y1 - 1 : y2, x1 : x2 + 1] >= thr)
+          & (a[y1 + 1 : y2 + 2, x1 : x2 + 1] >= thr))
+    count = int(ok.sum())
+    if count < 50:  # MinPixels, quality.c:359 (count==0 folds in)
+        return None
+    ys, xs = np.nonzero(ok)
+    x_avg = (xs + x1).sum() / count + 0.5
+    y_avg = (ys + y1).sum() / count + 0.5
+    return float(x_avg), float(h - y_avg)
+
+
 def normalize_quality(qualities: np.ndarray) -> np.ndarray:
     """normalizeQualityData (registration.c:163-176): (q - min)/(max - min)."""
     q = np.asarray(qualities, dtype=np.float64)
@@ -220,4 +250,5 @@ def normalize_quality(qualities: np.ndarray) -> np.ndarray:
 
 
 __all__ = ["quality_estimate", "quality_estimate_batch", "normalize_quality",
+           "find_centre",
            "QUALTYPE_NORMAL", "QUALTYPE_NINOX"]

@@ -4,7 +4,9 @@ There are no learned weights in this system: what the two packages
 exchange is data — (F, H, W) uint16 frames, (F, 2) int32 shifts, the
 (siglow, sighigh) pair, star lists and PSF fits (``stars_to_fields``,
 ``psf_fit_to_numpy``), the settings of calibration and background
-extraction (``PreproConfig``, ``BackgroundParams``: ``config_to_fields``)
+extraction (``PreproConfig``, ``BackgroundParams``: ``config_to_fields``),
+the CLI's ``Settings`` (``settings_from_fields``), compositing's layers
+(``composition_layers_to_fields``)
 and a master dark's deviant pixels (``deviants_to_fields``), and a
 sequence's state: its registration data, selection and cached statistics. On disk that state is the ``.seq`` file
 beside the SER or FITS files, which either package reads and writes; in
@@ -161,8 +163,8 @@ def psf_fit_to_numpy(fit) -> dict:
 
 
 def config_to_fields(cfg) -> dict:
-    """A ``PreproConfig`` or ``BackgroundParams`` of either package as a
-    dict of its fields."""
+    """A ``PreproConfig``, ``BackgroundParams`` or ``core.config.Settings``
+    of either package as a dict of its fields."""
     return dataclasses.asdict(cfg)
 
 
@@ -178,6 +180,33 @@ def background_params_from_fields(fields: dict):
     from siriltpu_torch.ops.background import BackgroundParams
 
     return BackgroundParams(**fields)
+
+
+def settings_from_fields(fields: dict):
+    """The port's ``core.config.Settings`` from ``config_to_fields``' dict
+    of either package's ``Settings``, field by field."""
+    from siriltpu_torch.core.config import Settings
+
+    return Settings(**fields)
+
+
+def composition_layers_to_fields(layers) -> dict:
+    """A ``pipelines.compositing.CompositionLayer`` list of either package
+    as ``data``, a list of (C, H, W) uint16 arrays, ``meta``, a list of
+    the frames' header dicts, and ``color``, an (N, 3) float64 array."""
+    return {"data": [np.asarray(lay.frame.data) for lay in layers],
+            "meta": [dict(lay.frame.meta) for lay in layers],
+            "color": np.array([lay.color for lay in layers],
+                              np.float64).reshape(-1, 3)}
+
+
+def composition_layers_from_fields(fields: dict) -> list:
+    """The port's ``CompositionLayer`` list from
+    ``composition_layers_to_fields``' dict."""
+    from siriltpu_torch.pipelines.compositing import CompositionLayer
+
+    return [CompositionLayer(Frame(np.array(d), dict(m)), tuple(float(v) for v in c))
+            for d, m, c in zip(fields["data"], fields["meta"], fields["color"])]
 
 
 #: the fields of a cosmetic ``DeviantPixel`` of either package
@@ -206,4 +235,6 @@ __all__ = ["u16_to_i32", "to_float32", "i32_to_u16", "frames_from_numpy",
            "STATS_COLUMNS", "stars_to_fields", "stars_from_fields",
            "psf_fit_to_numpy", "STAR_COLUMNS", "config_to_fields",
            "prepro_config_from_fields", "background_params_from_fields",
-           "DEVIANT_COLUMNS", "deviants_to_fields", "deviants_from_fields"]
+           "DEVIANT_COLUMNS", "deviants_to_fields", "deviants_from_fields",
+           "settings_from_fields", "composition_layers_to_fields",
+           "composition_layers_from_fields"]

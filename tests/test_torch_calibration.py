@@ -21,6 +21,8 @@ frames). Tolerances:
   tiled sampler at small angles: as ``ops/warp.py``'s tests hold them,
   within 1 LSB on at most 0.1% of the words (nearest: words differ on at
   most 1e-3 of the pixels, a .5 boundary taking the neighbour);
+- ``lrgb`` is host NumPy (``pipelines/compositing.py:compose``):
+  tolerance 0;
 - ``background_noise``: the B-spline wavelet plane differs from the JAX
   package's by one unit in the last place (XLA contracts its taps into
   fused multiply-adds), which can move a rounded word: sigma within
@@ -170,10 +172,13 @@ def test_background_noise_matches_jax(jx):
                                jx.imops.background_noise(img), rtol=1e-6)
 
 
-def test_lrgb_names_the_module_it_waits_for():
-    img = make_sky(1, 9)[0]
-    with pytest.raises(NotImplementedError, match="pipelines/compositing.py"):
-        ti.lrgb(img, img, img, img)
+def test_lrgb_names_the_module_it_waits_for(jx):
+    """lrgb waited for pipelines/compositing.py; with it ported, lrgb is
+    its host compose and equals the JAX package's word for word."""
+    l, r, g, b = (make_sky(1, 9 + k)[0] for k in range(4))
+    got = ti.lrgb(l, r, g, b)
+    assert got.shape == (3, H, W) and got.dtype == np.uint16
+    np.testing.assert_array_equal(got, jx.imops.lrgb(l, r, g, b))
 
 
 class _Reader:

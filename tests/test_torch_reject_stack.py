@@ -231,7 +231,9 @@ def test_wrapper_rejects_bad_input():
 
 def test_port_imports_without_jax_or_siriltpu():
     """Every module of the port imports in a fresh interpreter without
-    pulling in JAX or siriltpu (and without nvcc: the build is lazy)."""
+    pulling in JAX or siriltpu (and without nvcc: the build is lazy), nor
+    Pillow, imageio or matplotlib, which the image formats and the plots
+    import only when a call needs them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import siriltpu_torch\n"
@@ -249,8 +251,14 @@ def test_port_imports_without_jax_or_siriltpu():
         "          'registration.global_star', 'ops.imops', 'ops.demosaic',\n"
         "          'ops.cosmetic', 'ops.background', 'ops.histogram_ops',\n"
         "          'ops.display', 'parallel.engine', 'pipelines.preprocess',\n"
-        "          'pipelines.full'):\n"
-        "    assert 'siriltpu_torch.' + m in sys.modules, m\n")
+        "          'pipelines.full', 'ops.colors', 'ops.fftops', 'ops.wave_io',\n"
+        "          'pipelines.compositing', 'pipelines.plots', 'io.formats',\n"
+        "          'io.conversion', 'core.config', 'core.undo', 'cli.state',\n"
+        "          'cli.commands', 'cli.main'):\n"
+        "    assert 'siriltpu_torch.' + m in sys.modules, m\n"
+        "late = [k for k in sys.modules if k.split('.')[0] in\n"
+        "        ('PIL', 'imageio', 'matplotlib')]\n"
+        "assert not late, late\n")
     env = dict(os.environ, PYTHONPATH=PKG_ROOT)
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
