@@ -19,7 +19,7 @@ exits non-zero without printing a result:
    median, percentile, sigmedian, winsorized) against its plain PyTorch
    version on the card, bit for bit, for F in {3, 5, 12, 25, 64, 100, 256,
    1000} (sigma also 7) and at the borders of their designs, F in {31,
-   32, 33, 63, 65, 127, 128, 129, 511, 512, 1024, 1025}, at P = 65536
+   32, 33, 63, 65, 127, 128, 129, 511, 512, 1024, 1025}, at P = 32768
    (outliers at 0 and 60000, real 65535 values, degenerate geomspace
    columns), and on the device-memory scratch path (sigma at F = 4000;
    median, percentile, sigmedian and winsorized at F = 2000 with no
@@ -75,7 +75,7 @@ exits non-zero without printing a result:
       pixel and on 2,000 seeded others. Prints the knife-edge pixels, the
       seconds of their host re-run, frames/s, and reject_linearfit's ms at
       50 x 4.19M beside its device-memory bound and torch.sort's ms;
-   b. ECC: 1000 frames of 480 x 640 in the 8-bit range (a disc with
+   b. ECC: 500 frames of 480 x 640 in the 8-bit range (a disc with
       detail, peak under 255, 2 counts of noise, whole-pixel drifts in
       [-20, 20]) written as a SER file, registered with register_ecc (the
       shifts must equal the generated ones and no frame may fail), then
@@ -94,7 +94,7 @@ exits non-zero without printing a result:
       selection, box gather and fit.
 10. global star registration, BASELINE config 4 (plain PyTorch on the card
     but for the sigma kernel of its stacks):
-    a. 100 RGB frames of 2048 x 3072 made on the card (sky 1000 with noise
+    a. 50 RGB frames of 2048 x 3072 made on the card (sky 1000 with noise
        10 in each channel, 500 round Gaussian stars with channel gains
        1.0, 0.8 and 0.6; each frame the star positions moved through a
        planted homography, rotation in [-0.5, 0.5] degrees and sub-pixel
@@ -106,8 +106,8 @@ exits non-zero without printing a result:
        first 8 frames, the stack equal the plain version (image and
        counters, every channel) and stay sharp: the mean FWHM of the
        stars peaker finds on its layer 0 within 10% of frame 0's.
-    b. the same from disk, cut to layer 0 of the first 16 frames (100 RGB
-       frames would write 7.5 GB): FITS files in a temporary directory,
+    b. the same from disk, cut to layer 0 of the first 16 frames (50 RGB
+       frames would write 3.8 GB): FITS files in a temporary directory,
        check_seq, register_global_star writing the r_ sequence and its
        .seq, stack_sequence(mean, sigma (3, 3)) on it. The r_ frames must
        read back equal to an in-memory run's output and the stack equal
@@ -123,7 +123,7 @@ exits non-zero without printing a result:
 11. BASELINE config 5, SER convert -> background extraction -> register ->
     rejection stack -> autostretch (plain PyTorch and host NumPy but for
     the winsorized kernel of its stack):
-    a. 12 RGB frames of 6144 x 4096 made on the card (sky 800 with noise 6
+    a. 4 RGB frames of 6144 x 4096 made on the card (sky 800 with noise 6
        in each channel, a linear sky gradient of up to ~3900 counts, 400
        round Gaussian stars with phase 10's channel gains, each frame's
        stars moved through a planted homography: rotation in [-0.5, 0.5]
@@ -148,7 +148,7 @@ exits non-zero without printing a result:
        bound of the card's methods; the card's VNG bit-equal to the NumPy
        vng, its AHD equal to the NumPy ahd on all but 1e-5 of the words
        (the float32 colour transform's knife-edges, PARITY.md #7).
-12. a scripted session through the command line (CONFIG12: 16 darks and 32
+12. a scripted session through the command line (CONFIG12: 4 darks and 8
     lights of 4096 x 4096 uint16 mono, BASELINE config 1's frame size),
     in a temporary directory removed at the end (its size printed):
     a. darks/dark.ser (a fixed pattern near 150 with 0.1% hot pixels, plus
@@ -168,10 +168,10 @@ exits non-zero without printing a result:
        equal; d_stacked.fit the plain median of the darks on the card;
        pp_light_stacked.fit stack_sequence composed by hand and the plain
        sigma version (image, and the kernel's outputs against its plain
-       version at 32 x 16.8M); final.fit the stack's background subtracted
+       version at 8 x 16.8M); final.fit the stack's background subtracted
        and stretched by hand; final.bmp and final.pgm what _to_display8
        and save_pnm make of it. Prints frames/s from the first line to
-       `save final` for the 32 lights;
+       `save final` for the 8 lights;
     b. POST12 on that result in the same state, each line timed: fftd and
        ffti (within 1 LSB of NumPy's fft2 of the same 16-bit quantized
        modulus and phase, by hand; the distance from the image itself is
@@ -181,10 +181,50 @@ exits non-zero without printing a result:
        luminance, satu, rmgreen and savebmp: the colour image equal to
        compose, enhance_saturation and scnr applied by hand.
 
+13. films, camera raw files and export through the command line, each part
+    in a temporary directory removed at its end:
+    a. the planetary film: phase 9b's disc frames at BASELINE config 3's
+       shape (1000 x 480 x 640, 8-bit, planted drifts) written as an
+       uncompressed DIB AVI by the native writer (30 fps, lo 0, hi 255: every
+       word through unchanged; its first 16 frames equal to the Python
+       writer's file); FILM13 (seqload of the AVI, register ecc, the
+       winsorized (3, 3) additive_scaling stack, seqexport to SER, a 256 x 256
+       boxselect and seqexport to AVI) through `python -m siriltpu_torch` in a
+       subprocess, then line by line in this process (each line timed; the
+       winsorized kernel must launch). The film reader's 1000 frames must
+       equal the planted ones (the dib backend), the ECC shifts the planted
+       ones, both runs' files be equal, the stack (image and counters) equal
+       stack_frames of the frames in memory with the planted shifts, the
+       kernel its plain version at this shape, jup.ser's frames shift_gather
+       of the planted frames and jupc.avi's frames _frame_to_dib of their
+       crop. Prints film frames/s from seqload to the written stack, with the
+       seconds of the ECC reads, host quality and device loop, and of the
+       normalization;
+    b. a DSLR raw night: 12 RGGB lights of 4000 x 6000, 14-bit (phase 10's
+       star frames with planted homographies, shifted down two bits,
+       mosaiced as phase 11's), written as uncompressed DNG files; RAW13
+       (convert -debayer with the default settings, AHD on the card;
+       seqload, register global, the r_ sequence's sigma (3, 3) stack, a
+       1024 x 1024 boxselect and seqexport to SER) line by line through
+       the command line's dispatcher. Each converted FITS must equal read_raw
+       of its DNG composed by hand, AHD run on the card once a light
+       (ahd_device's calls counted), every light register with its corners
+       within 0.1 px of the planted homography, the stack equal its plain
+       version (image and counters, three channels) and rc.ser's frames the
+       r_ lights' crop. Prints s a command, s a light of convert, frames/s;
+    c. every raw decoder that runs native code (CR2 and lossless DNG through
+       lj92, NEF, PEF, ORF, RW2, CRW) and the ARW2, MRW and RAF readers, on a
+       512 x 768 file each from the port's writers: each must decode to its
+       planted plane and pattern, the native library be built under
+       siriltpu_torch/_build/ and nothing under siril-0.9_tpu/native/ change.
+       Prints whether the libav film bridge builds (either answer passes).
+
 Each stack of phases 6-7 runs once with every launch count set to 0: its
 kernel must have launched, and the image and per-channel counters must be
 bit-equal to the same y-shifted, normalized, x-shifted (F, P) data, built
-here with other code, put through the plain version in 2^20-pixel chunks.
+here with other code, put through reject_and_mean (the masked formulation
+of percentile, sigmedian and winsorized; masked_median for the median) in
+blocks of 2^14 pixels (masked_reference).
 A second, warm run gives its frames/s (a stack with normalization runs
 once: its one run is timed). Each kernel's ms and its plain
 version's ms are taken at its configuration's full shape (CUDA events,
@@ -213,7 +253,9 @@ sys.path.insert(0, os.path.join(REPO, "siril-0.9_tpu"))
 
 DEVICE = "cuda"
 SIZE, NFRAMES, SIG = 4096, 100, 3.0
-CASE_P = 65536
+#: pixels of each phase-3 case (cut from 65536 to leave phase 13 its time;
+#: every case still plants over 300 degenerate columns)
+CASE_P = 32768
 CASE_FS = (3, 5, 12, 25, 64, 100, 256, 1000)
 #: the kernels also run at the borders of their designs: the register
 #: sorts of 32, 64 or 128 wires up to F = 128 (sigma, median, percentile,
@@ -231,30 +273,46 @@ SEL3 = 256
 #: phase 9: the ECC sequence, the star frames and their planted stars,
 #: and the pixels of the linearfit stack held to the oracle beside its
 #: knife-edge pixels
-CONFIG_ECC = (1000, 480, 640)
+#: (the ECC sequence is cut from config 3's 1000 frames to 500: phase 13a
+#: runs register_ecc on all 1000 of its film)
+CONFIG_ECC = (500, 480, 640)
 CONFIG_STARS = (16, 2048, 3072)
 NSTARS = 500
 STAR_DRIFT = 8
 #: phase 10: BASELINE config 4 (frames, layers, height, width), the frames
 #: of its run from disk, the planted rotation (degrees) and shift (px)
 #: bounds, the channel gains, and the frames global_align_batch repeats
-CONFIG4 = (100, 3, 2048, 3072)
+#: (cut from BASELINE's 100 frames to 50 to leave phase 13 its time)
+CONFIG4 = (50, 3, 2048, 3072)
 CONFIG4_DISK = 16
 ROT4, SHIFT4 = 0.5, 8.0
 GAINS4 = (1.0, 0.8, 0.6)
 BATCH4 = 8
 #: phase 11: BASELINE config 5 (frames, layers, height, width), its stars,
 #: sky, noise, planted shift bound (px) and the sky gradient's slopes (a
-#: fraction of 65535 across the width and across the height)
-CONFIG5 = (12, 3, 4096, 6144)
+#: fraction of 65535 across the width and across the height) (cut from
+#: BASELINE's 12 frames to 4 to leave phase 13 its time)
+CONFIG5 = (4, 3, 4096, 6144)
 NSTARS5 = 400
 SKY5, NOISE5, SHIFT5 = 800.0, 6.0, 5.0
 GRAD5 = (0.04, 0.02)
 #: phase 12: a scripted session of darks and lights (mono, BASELINE config 1's
-#: frame size)
-CONFIG12 = (16, 32, 4096, 4096)
+#: frame size; cut from 16 darks and 32 lights to leave phase 13 its time)
+CONFIG12 = (4, 8, 4096, 4096)
+#: phase 13: the crops of the film's and the raw night's exports (square,
+#: about the centre); the raw night (lights, height, width of a 24 MP
+#: APS-C sensor) and its stars; the size of each native decoder's file
+CROP13 = (256, 1024)
+CONFIG13 = (12, 4000, 6000)
+NSTARS13 = 500
+NATIVE13 = (512, 768)
 LF_SAMPLE = 2000
 CHUNK = 1 << 20
+#: pixels a call of the masked reference loops takes (masked_reference, at
+#: the many frames of phases 3, 6 and 7): each loop runs until its slowest
+#: pixel settles, so a small block keeps the many fast pixels from paying
+#: for the few slow ones; the result is per pixel, the same in any blocking
+REF_CHUNK = 1 << 14
 REPS = 3
 #: device-memory rate of one H100 SXM (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -334,6 +392,19 @@ def max_abs_diff(got, want) -> int:
     def wide(x):
         return (u16_to_i32(x) if x.dtype == torch.uint16 else x).to(torch.int64)
     return int((wide(got) - wide(want)).abs().max())
+
+
+def masked_reference(vals, rejection: str, sig):
+    """reject_and_mean of (F, P) values, REF_CHUNK pixels a call: the masked
+    formulation (the JAX package's) of percentile, sigmedian and winsorized,
+    the hybrid of sigma. Returns the mean and both counters, each (P,)."""
+    import torch
+    from siriltpu_torch.ops.rejection import reject_and_mean
+
+    parts = [reject_and_mean(vals[:, a:a + REF_CHUNK], rejection, sig)
+             for a in range(0, vals.shape[1], REF_CHUNK)]
+    mean = torch.cat([p[0].view(torch.int16) for p in parts]).view(torch.uint16)
+    return (mean, torch.cat([p[1] for p in parts]), torch.cat([p[2] for p in parts]))
 
 
 def cuda_ms(fn, reps: int = REPS):
@@ -449,7 +520,7 @@ def yardsticks(rec, card, kernel: str, flat):
 
 def phase3(rs, rec, dev):
     import torch
-    from siriltpu_torch.ops.rejection import masked_median, reject_and_mean
+    from siriltpu_torch.ops.rejection import masked_median
     from siriltpu_torch.utils.interop import frames_from_numpy
 
     cases = [(r, f, CASE_P) for r in rs.launches
@@ -480,7 +551,7 @@ def phase3(rs, rec, dev):
             rs.SMEM_LIMIT = smem_limit
         torch.cuda.synchronize()
         ref = ((masked_median(vals),) if rej == "median"
-               else reject_and_mean(vals, rej, (lo, hi)))
+               else masked_reference(vals, rej, (lo, hi)))
         torch.cuda.synchronize()
         ferrs = [max_abs_diff(g, w) for g, w in zip(fin, ref)]
         print(f"phase3 {rej} F={f} P={p} sig=({lo}, {hi}) "
@@ -634,7 +705,7 @@ def stack_config(rs, rec, dev, card, label, frames, shifts, method, rejection,
     """One stack_frames run of a configuration, held to the plain version;
     then a warm run for its frames/s, and its kernel's time at this shape."""
     import torch
-    from siriltpu_torch.ops.rejection import masked_median, reject_and_mean
+    from siriltpu_torch.ops.rejection import masked_median
     from siriltpu_torch.stacking.api import (compute_normalization, ikss_stats,
                                              stack_frames)
     from siriltpu_torch.utils.interop import frames_from_numpy
@@ -670,7 +741,7 @@ def stack_config(rs, rec, dev, card, label, frames, shifts, method, rejection,
         if method == "median":
             errs.append(max_abs_diff(got[a:a + CHUNK], masked_median(v)))
             continue
-        pm, pl, ph = reject_and_mean(v, rejection, sig)
+        pm, pl, ph = masked_reference(v, rejection, sig)
         errs.append(max_abs_diff(got[a:a + CHUNK], pm))
         rl += int(pl.sum())
         rh += int(ph.sum())
@@ -1565,6 +1636,34 @@ def phase10(rs, rec, dev, card):
     phase10c(dev, card, host, planted)
 
 
+def kept_calls(module, name: str):
+    """Wrap ``module.name`` so that each call's result is kept; returns the
+    list and a function that puts the original back."""
+    calls, fn = [], getattr(module, name)
+
+    def kept(*args, **kwargs):
+        calls.append(fn(*args, **kwargs))
+        return calls[-1]
+    setattr(module, name, kept)
+    return calls, lambda: setattr(module, name, fn)
+
+
+def cli_subprocess(tmp: str, script: str, label: str) -> float:
+    """``python -m siriltpu_torch -d tmp -s script`` on DEVICE; any exit
+    but 0 fails the run. Returns its seconds."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(REPO, "siril-0.9_tpu")] + [p for p in [env.get("PYTHONPATH")] if p])
+    cmd = [sys.executable, "-m", "siriltpu_torch", "--device", DEVICE, "-d", tmp,
+           "-s", script]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        fail(f"{label}: python -m siriltpu_torch exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    return time.perf_counter() - t0
+
+
 def mosaic_rggb_bu(frame):
     """An RGGB mosaic of a (3, H, W) bottom-up uint16 tensor, laid over
     the top-down rows a SER file stores: (H, W) int16 bits, bottom-up
@@ -1639,14 +1738,8 @@ def phase11a(rs, rec, dev, card, tmp):
           flush=True)
 
     # the registration's report, which config5_pipeline keeps to itself
-    reports, register = [], global_star.register_global_star
-
-    def kept(*args, **kwargs):
-        reports.append(register(*args, **kwargs))
-        return reports[-1]
-
+    reports, put_back = kept_calls(global_star, "register_global_star")
     sig = SIGS["winsorized"]
-    global_star.register_global_star = kept
     rs.launches.update(dict.fromkeys(rs.launches, 0))
     try:
         t0 = time.perf_counter()
@@ -1655,7 +1748,7 @@ def phase11a(rs, rec, dev, card, tmp):
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
     finally:
-        global_star.register_global_star = register
+        put_back()
     launches = dict(rs.launches)
     rec.count(launches, "config5_pipeline", "winsorized")
     gstats = dict(global_star.global_stats)
@@ -1956,20 +2049,9 @@ def phase12a(rs, rec, dev, card, tmp):
         f.write(session)
     darks, lights = os.path.join(tmp, "darks"), os.path.join(tmp, "lights")
 
-    # ---- the session as a user runs it, on the card by default
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [os.path.join(REPO, "siril-0.9_tpu")] + [p for p in [env.get("PYTHONPATH")] if p])
-    cmd = [sys.executable, "-m", "siriltpu_torch", "-d", tmp, "-s", script]
-    if DEVICE != "cuda":
-        cmd += ["--device", DEVICE]
+    # ---- the session as a user runs it
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=900)
-    sub_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"phase12a: python -m siriltpu_torch exited {proc.returncode}: "
-             f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    sub_s = cli_subprocess(tmp, script, "phase12a")
     seq = read_seqfile(os.path.join(lights, "pp_light.seq"))
     if not np.array_equal(seq.reg_shifts(0), shifts):
         fail("phase12a: the subprocess's pp_light.seq holds other shifts than the "
@@ -2005,7 +2087,7 @@ def phase12a(rs, rec, dev, card, tmp):
     if not np.array_equal(state.seq.reg_shifts(0), shifts):
         fail("phase12a: register dft recovered other shifts than the planted ones")
 
-    # ---- the master dark: the plain median of the 16 darks on the card
+    # ---- the master dark: the plain median of the darks on the card
     dseq = ser_sequence(os.path.join(darks, "dark.ser"))
     dvals = frames_from_numpy(np.stack([dseq.read_frame(i).data for i in range(ndark)]), dev)
     master = read_fits(os.path.join(darks, "d_stacked.fit")).data
@@ -2133,12 +2215,441 @@ def phase12(rs, rec, dev, card):
     print(f"phase12 {size} bytes of input and output files removed", flush=True)
 
 
+#: phase 13a: the planetary film's script (BASELINE config 3 as a DIB AVI)
+FILM13 = """seqload jupiter.avi
+register ecc
+stack mean winsorized 3 3 additive_scaling
+seqexport jup ser
+boxselect {x} {y} {s} {s}
+seqexport jupc avi
+"""
+#: phase 13b: the DSLR raw night's script
+RAW13 = """convert light -debayer
+seqload light
+register global
+seqload r_light
+stack mean sigma 3 3
+boxselect {x} {y} {s} {s}
+seqexport rc ser
+"""
+
+
+def write_dng(path: str, cfa, pattern: str = "RGGB", lj92: bool = False) -> None:
+    """A one-strip CFA DNG of the (H, W) top-down uint16 plane: 16-bit
+    little-endian words, or (``lj92``) one lossless-JPEG stream of two
+    components (predictor 1, the port's CR2 encoder). Its tags are those of
+    tests/test_raw.py's ``write_dng``."""
+    import struct
+    from siriltpu_torch.testing.cr2 import encode_sof3
+
+    h, w = cfa.shape
+    data = encode_sof3(cfa, 2, precision=16) if lj92 else cfa.astype("<u2").tobytes()
+    tags = [(254, 4, [0]), (256, 4, [w]), (257, 4, [h]), (258, 3, [16]),
+            (259, 3, [7 if lj92 else 1]), (262, 3, [32803]), (273, 4, [0]),
+            (277, 3, [1]), (278, 4, [h]), (279, 4, [len(data)]), (33421, 3, [2, 2]),
+            (33422, 1, ["RGB".index(c) for c in pattern]), (50706, 1, [1, 4, 0, 0])]
+    data_off = 8 + 2 + 12 * len(tags) + 4
+    ifd = struct.pack("<H", len(tags))
+    for tag, typ, vals in tags:
+        vals = [data_off] if tag == 273 else vals
+        raw = b"".join(struct.pack("<" + {1: "B", 3: "H", 4: "I"}[typ], v) for v in vals)
+        ifd += struct.pack("<HHI", tag, typ, len(vals)) + raw.ljust(4, b"\0")
+    with open(path, "wb") as f:
+        f.write(b"II*\0" + struct.pack("<I", 8) + ifd + struct.pack("<I", 0) + data)
+
+
+def phase13a(rs, rec, dev, card, tmp):
+    """The planetary film: BASELINE config 3's frames as a DIB AVI, through
+    the command line in a subprocess and line by line, and its checks."""
+    import torch
+    from siriltpu_torch.cli.main import make_state
+    from siriltpu_torch.core.frame import Frame
+    from siriltpu_torch.io import avi
+    from siriltpu_torch.io.films import FilmFile
+    from siriltpu_torch.io.fits import read_fits
+    from siriltpu_torch.io.ser import SerFile
+    from siriltpu_torch.registration import translation
+    from siriltpu_torch.stacking import api
+    from siriltpu_torch.utils.interop import u16_to_numpy
+    from siriltpu_torch.verify.oracle import shift_gather
+
+    frames_dev, shifts = make_disc_frames(*CONFIG3, seed=13, dev=dev)
+    frames = u16_to_numpy(frames_dev)
+    f, _, h, w = frames.shape
+    path = os.path.join(tmp, "jupiter.avi")
+    t0 = time.perf_counter()
+    wtr = avi.AviWriter(path, w, h, fps=30.0)
+    if not wtr.native:
+        fail("phase13a: the AVI writer fell back to Python: no native library")
+    for fr in frames:
+        wtr.write_frame(Frame(fr), 0, 255)
+    wtr.close()
+    wrote_s = time.perf_counter() - t0
+    # the native writer's bytes are the Python writer's, on the first 16 frames
+    pair, load = [], avi._load_native
+    for native in (True, False):
+        p = os.path.join(tmp, f"first16_{native}.avi")
+        if not native:
+            avi._load_native = lambda: None
+        try:
+            wtr16 = avi.AviWriter(p, w, h, fps=30.0)
+            if wtr16.native != native:
+                fail(f"phase13a: the AVI writer's native={wtr16.native}, wanted {native}")
+            for fr in frames[:16]:
+                wtr16.write_frame(Frame(fr), 0, 255)
+            wtr16.close()
+        finally:
+            avi._load_native = load
+        pair.append(open(p, "rb").read())
+        os.unlink(p)
+    if pair[0] != pair[1]:
+        fail("phase13a: the native AVI writer's 16 frames differ from the Python writer's")
+    film = FilmFile.open(path)
+    if film._backend != "dib" or (film.nb_frames, film.width, film.height) != (f, w, h):
+        fail(f"phase13a: the film opened as {film._backend} with "
+             f"{(film.nb_frames, film.width, film.height)}")
+    t0 = time.perf_counter()
+    for i in range(f):
+        if not np.array_equal(film.read_frame(i).data, frames[i]):
+            fail(f"phase13a: the film reader's frame {i} differs from the planted one")
+    read_s = time.perf_counter() - t0
+    print(f"phase13a {f} frames of {w}x{h} (peak {int(frames.max())}) written as a DIB "
+          f"AVI of {os.path.getsize(path)} bytes by the native writer in {wrote_s:.3f} s "
+          f"(its 16-frame file equal to the Python writer's); the film reader's {f} "
+          f"frames equal the planted ones ({read_s:.3f} s, backend {film._backend}) "
+          f"[{card}]", flush=True)
+
+    script = FILM13.format(x=(w - CROP13[0]) // 2, y=(h - CROP13[0]) // 2, s=CROP13[0])
+    with open(os.path.join(tmp, "film.ssf"), "w") as fh:
+        fh.write(script)
+    sub_s = cli_subprocess(tmp, os.path.join(tmp, "film.ssf"), "phase13a")
+    outs = {"jupiter_stacked.fit": fits_sans_date(os.path.join(tmp, "jupiter_stacked.fit"))}
+    outs.update({n: open(os.path.join(tmp, n), "rb").read() for n in ("jup.ser", "jupc.avi")})
+    print(f"phase13a python -m siriltpu_torch -d DIR -s film.ssf: exit 0 in {sub_s:.3f} s "
+          f"[{card}]", flush=True)
+
+    lines = [line for line in script.splitlines() if line.strip()]
+    state = make_state(tmp, device=dev)
+    stacks, put_stack = kept_calls(api, "stack_sequence")
+    norm = Clock()
+    normalization, api.sequence_normalization = (api.sequence_normalization,
+                                                 norm.wrap(api.sequence_normalization))
+    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    try:
+        secs = run_lines(state, lines, "phase13a", card)
+    finally:
+        put_stack()
+        api.sequence_normalization = normalization
+    launches = dict(rs.launches)
+    rec.count(launches, "the film's script", "winsorized")
+    ecc = dict(translation.ecc_stats)
+    to_stack = sum(secs[:3])
+    print(f"phase13a the film's script in this process: launches={launches}; {f / to_stack:.3f} "
+          f"film frames/s from 'seqload' to the written stack ({to_stack:.3f} s, one run, "
+          f"host clock): ECC file reads {ecc['read_s']:.3f} s, host quality "
+          f"{ecc['quality_s']:.3f} s, device loop {ecc['device_s']:.3f} s, normalization "
+          f"{norm.main:.3f} s; by command "
+          + ", ".join(f"{l.split()[0]} {s:.3f}" for l, s in zip(lines, secs))
+          + f" [{card}]", flush=True)
+    for name, want in outs.items():
+        got = (fits_sans_date(os.path.join(tmp, name)) if name.endswith(".fit")
+               else open(os.path.join(tmp, name), "rb").read())
+        if got != want:
+            fail(f"phase13a: this process's {name} differs from the subprocess's")
+    if not np.array_equal(state.seq.reg_shifts(0), shifts):
+        bad = int((state.seq.reg_shifts(0) != shifts).any(axis=1).sum())
+        fail(f"phase13a: {bad} ECC shifts differ from the planted ones")
+
+    # the stack against stack_frames in memory with the planted shifts, and
+    # the kernel at this shape against its plain version
+    res = stacks[0]
+    sig = SIGS["winsorized"]
+    t0 = time.perf_counter()
+    want = api.stack_frames(frames_dev, device=dev, shifts=shifts, method="mean",
+                            rejection="winsorized", sig=sig, normalize="additive_scaling")
+    torch.cuda.synchronize()
+    mem_s = time.perf_counter() - t0
+    errs = [int(np.abs(res.data.astype(np.int64) - want.data).max()),
+            int(np.abs(res.rejection_low - want.rejection_low).max()),
+            int(np.abs(res.rejection_high - want.rejection_high).max())]
+    rec.check("winsorized", errs, "phase13a the film's stack vs stack_frames in memory")
+    if not np.array_equal(read_fits(os.path.join(tmp, "jupiter_stacked.fit")).data, res.data):
+        fail("phase13a: jupiter_stacked.fit differs from the stack")
+    coeffs = api.compute_normalization(api.ikss_stats(frames_dev), 0, "additive_scaling")
+    flat = reference_flat(frames_dev, shifts, "mean", coeffs)
+    kout = rs.reject_cuda(flat, "winsorized", *sig)
+    kerrs = []
+    for a in range(0, flat.shape[1], CHUNK):
+        plain = rs.reject_plain(flat[:, a:a + CHUNK], "winsorized", *sig)
+        kerrs += [max_abs_diff(k[a:a + CHUNK], p) for k, p in zip(kout, plain)]
+    rec.check("winsorized", kerrs, "phase13a the kernel vs its plain version")
+    k_ms, _ = cuda_ms(lambda: rs.reject_cuda(flat, "winsorized", *sig))
+    del flat, kout, frames_dev
+    torch.cuda.empty_cache()
+
+    # the exports: the SER is shift_gather of the planted frames, the
+    # cropped AVI _frame_to_dib's mapping of their crop
+    ser = SerFile.open(os.path.join(tmp, "jup.ser"))
+    crop = os.path.join(tmp, "jupc.avi")
+    cfilm = FilmFile.open(crop)
+    s = CROP13[0]
+    if ser.frame_count != f or cfilm.nb_frames != f or (cfilm.width, cfilm.height) != (s, s):
+        fail(f"phase13a: exports of {ser.frame_count} and {cfilm.nb_frames} frames")
+    x0, y0 = (w - s) // 2, h - (h - s) // 2 - s   # the top-down selection, bottom-up
+    t0 = time.perf_counter()
+    for i in range(f):
+        moved = shift_gather(frames[i], int(shifts[i, 0]), int(shifts[i, 1]), fill=0,
+                             skip_origin=False)
+        if not np.array_equal(ser.read_frame(i).data, moved):
+            fail(f"phase13a: jup.ser's frame {i} is not shift_gather of the planted frame")
+        dib = np.frombuffer(avi._frame_to_dib(
+            Frame(moved[:, y0:y0 + s, x0:x0 + s])), np.uint8).reshape(s, s, 3)
+        want_c = dib[..., ::-1].transpose(2, 0, 1)   # BGR rows to RGB planes
+        if (want_c == want_c[:1]).all():             # grey: the reader's one layer
+            want_c = want_c[:1]
+        if not np.array_equal(cfilm.read_frame(i).data, want_c):
+            fail(f"phase13a: jupc.avi's frame {i} is not _frame_to_dib of the crop")
+    check_s = time.perf_counter() - t0
+    print(f"phase13a checks: ECC shifts equal the planted ones; the subprocess's and this "
+          f"process's jupiter_stacked.fit (but its DATE), jup.ser and jupc.avi equal; the "
+          f"stack (image+counters) equals stack_frames of the frames in memory with the "
+          f"planted shifts, max|diff|={max(errs)} ({mem_s:.3f} s), rejected low "
+          f"{int(res.rejection_low[0])} high {int(res.rejection_high[0])}; the winsorized "
+          f"kernel at {f}x{h * w} {k_ms:.3f} ms (median of {REPS} warm runs), equal to its "
+          f"plain version; jup.ser's {f} frames equal shift_gather of the planted frames, "
+          f"jupc.avi's {f} frames _frame_to_dib of their {s}x{s} crop ({check_s:.3f} s) "
+          f"[{card}]", flush=True)
+
+
+def make_raw_night(tmp: str, dev):
+    """CONFIG13's lights as uncompressed 14-bit RGGB DNG files in ``tmp``:
+    phase 10's star frames (sky 250, noise 2.5, 500 stars, planted
+    homographies; the 16-bit frames shifted down by two bits), mosaiced as
+    phase 11 does. Returns the planted homographies and the seconds it
+    took."""
+    import torch
+    from siriltpu_torch.utils.interop import i32_to_u16, u16_to_i32, u16_to_numpy
+
+    f, h, w = CONFIG13
+    t0 = time.perf_counter()
+    frames, planted = make_config4_frames(f, 3, h, w, seed=13, dev=dev, nstars=NSTARS13)
+    for i in range(f):
+        cfa = mosaic_rggb_bu(i32_to_u16(u16_to_i32(frames[i]) >> 2)).flip(0)
+        write_dng(os.path.join(tmp, f"L_{i + 1:04d}.dng"),
+                  u16_to_numpy(cfa.view(torch.uint16)))
+    del frames
+    torch.cuda.empty_cache()
+    return planted, time.perf_counter() - t0
+
+
+def phase13b(rs, rec, dev, card, tmp):
+    """A DSLR raw night through the command line, line by line, and its
+    checks."""
+    import torch
+    from siriltpu_torch.cli.main import make_state
+    from siriltpu_torch.core.config import Settings
+    from siriltpu_torch.io.fits import read_fits
+    from siriltpu_torch.io.raw import read_raw
+    from siriltpu_torch.io.ser import SerFile
+    from siriltpu_torch.ops import demosaic
+    from siriltpu_torch.ops.rejection import reject_and_mean
+    from siriltpu_torch.registration import global_star
+    from siriltpu_torch.stacking import api
+    from siriltpu_torch.utils.interop import frames_from_numpy
+
+    f, h, w = CONFIG13
+    planted, made_s = make_raw_night(tmp, dev)
+    dngs = sorted(n for n in os.listdir(tmp) if n.endswith(".dng"))
+    print(f"phase13b {f} RGGB lights of {w}x{h} (14-bit) made on the card and written "
+          f"as DNG files ({sum(os.path.getsize(os.path.join(tmp, n)) for n in dngs)} "
+          f"bytes) in {made_s:.2f} s; {shutil.disk_usage(tmp).free} bytes free there "
+          f"[{card}]", flush=True)
+    s = CROP13[1]
+    script = RAW13.format(x=(w - s) // 2, y=(h - s) // 2, s=s)
+    lines = [line for line in script.splitlines() if line.strip()]
+    state = make_state(tmp, device=dev)
+    on_card = []
+    ahd = demosaic.ahd_device
+
+    def counted(cfa, pattern, *, device):
+        on_card.append(str(device))
+        return ahd(cfa, pattern, device=device)
+    demosaic.ahd_device = counted
+    reports, put_reg = kept_calls(global_star, "register_global_star")
+    stacks, put_stack = kept_calls(api, "stack_sequence")
+    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    try:
+        secs = run_lines(state, lines, "phase13b", card)
+    finally:
+        demosaic.ahd_device = ahd
+        put_reg()
+        put_stack()
+    launches = dict(rs.launches)
+    rec.count(launches, "the raw night's script", "sigma")
+    if on_card != [str(torch.device(dev))] * f:
+        fail(f"phase13b: convert's AHD ran {on_card}, not once a light on {dev}")
+    to_stack = sum(secs[:5])
+    print(f"phase13b the raw night's script in this process: launches={launches}; "
+          f"convert {secs[0] / f:.3f} s a light (decode, AHD on the card, FITS written), "
+          f"{f / to_stack:.4f} frames/s from 'convert' to the written stack "
+          f"({to_stack:.3f} s, one run, host clock); registration "
+          f"{({k: round(v, 3) for k, v in global_star.global_stats.items()})}; by command "
+          + ", ".join(f"{l.split()[0]} {s:.3f}" for l, s in zip(lines, secs))
+          + f" [{card}]", flush=True)
+
+    # each converted FITS is read_raw's frame composed by hand
+    t0 = time.perf_counter()
+    for k, name in enumerate(dngs):
+        got = read_fits(os.path.join(tmp, f"light{k + 1:05d}.fit")).data
+        if not np.array_equal(got, read_raw(os.path.join(tmp, name), settings=Settings(),
+                                            device=dev).data):
+            fail(f"phase13b: light{k + 1:05d}.fit differs from read_raw of {name}")
+    raw_s = time.perf_counter() - t0
+    rep = reports[0]
+    if rep.registered != f or rep.failed:
+        fail(f"phase13b: {rep.registered} of {f} lights registered, {rep.failed} failed")
+    errs = [corner_error(H, p, h, w) for H, p in zip(rep.homographies, planted)]
+    if max(errs) > 0.1:
+        fail(f"phase13b: light {int(np.argmax(errs))}'s homography moves a corner "
+             f"{max(errs):.4f} px from the planted one's")
+
+    # the sigma stack of the r_ lights against the plain version
+    res = stacks[0]
+    sig = SIGS["sigma"]
+    regged = np.stack([read_fits(os.path.join(tmp, f"r_light{k + 1:05d}.fit")).data
+                       for k in range(f)])
+    vals = frames_from_numpy(regged, dev).view(torch.int16)
+    perrs = []
+    for ch in range(3):
+        flat = vals[:, ch].reshape(f, -1).view(torch.uint16)
+        img = frames_from_numpy(res.data[ch], dev).reshape(-1)
+        rl = rh = 0
+        for a in range(0, flat.shape[1], CHUNK):
+            pm, pl, ph = reject_and_mean(flat[:, a:a + CHUNK], "sigma", sig)
+            perrs.append(max_abs_diff(img[a:a + CHUNK], pm))
+            rl += int(pl.sum())
+            rh += int(ph.sum())
+        perrs += [abs(int(res.rejection_low[ch]) - rl), abs(int(res.rejection_high[ch]) - rh)]
+    del vals, flat
+    torch.cuda.empty_cache()
+    rec.check("sigma", perrs, "phase13b the sigma stack of the r_ lights vs the plain version")
+    if not np.array_equal(read_fits(os.path.join(tmp, "r_light_stacked.fit")).data, res.data):
+        fail("phase13b: r_light_stacked.fit differs from the stack")
+
+    # the exported crop is the r_ lights' crop (a top-down selection)
+    x0, y0 = (w - s) // 2, h - (h - s) // 2 - s
+    ser = SerFile.open(os.path.join(tmp, "rc.ser"))
+    if ser.frame_count != f:
+        fail(f"phase13b: rc.ser holds {ser.frame_count} frames")
+    for k in range(f):
+        if not np.array_equal(ser.read_frame(k).data,
+                              regged[k][:, y0:y0 + s, x0:x0 + s]):
+            fail(f"phase13b: rc.ser's frame {k} is not the r_ light's crop")
+    print(f"phase13b checks: each lightNNNNN.fit equals read_raw of its DNG composed by "
+          f"hand ({raw_s:.3f} s), AHD on {dev} once a light; {f} of {f} registered, "
+          f"corners within {max(errs):.5f} px of the planted homographies (median "
+          f"{np.median(errs):.5f}); the sigma stack (image+counters, 3 channels) equals "
+          f"the plain version, max|diff|={max(perrs)}, rejected low "
+          f"{res.rejection_low.tolist()} high {res.rejection_high.tolist()}; rc.ser's {f} "
+          f"frames equal the r_ lights' {s}x{s} crop [{card}]", flush=True)
+
+
+def phase13c(card, tmp):
+    """Every raw decoder that runs native code (and the three that do not),
+    on files the port's writers make, and the native build's place."""
+    import hashlib
+    from siriltpu_torch.io import film_codec
+    from siriltpu_torch.io.raw import read_raw_cfa
+    from siriltpu_torch.testing import arw, cr2, crw, mrw, nef, orf, pef, raf, rw2
+    from siriltpu_torch.utils import native
+
+    def tree():
+        return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+                for p in sorted(native.NATIVE_DIR.iterdir()) if p.is_file()}
+    before = tree()
+    h, w = NATIVE13
+    rng = np.random.default_rng(130)
+    img14 = rng.integers(0, 1 << 14, (h, w)).astype(np.uint16)
+    img12 = rng.integers(0, 1 << 12, (h, w)).astype(np.uint16)
+    smooth = np.clip(rng.integers(300, 700) + np.cumsum(rng.integers(-9, 10, (h, w)), axis=1),
+                     0, 4095).astype(np.uint16)
+    # Sony blocks whose 16 same-parity pixels span <= 127 values are exact
+    base = rng.integers(0, 0x7FF - 127, (h, w // 32, 2))
+    pix = np.repeat(base.reshape(h, -1), 16, axis=1).reshape(h, w // 32, 2, 16)
+    pix = pix + rng.integers(0, 128, pix.shape)
+    sony = np.zeros((h, w), np.int64)
+    cols = (32 * np.arange(w // 32)[:, None] + 2 * np.arange(16)[None, :]).ravel()
+    sony[:, cols] = pix[:, :, 0, :].reshape(h, -1)
+    sony[:, cols + 1] = pix[:, :, 1, :].reshape(h, -1)
+
+    def p(name):
+        return os.path.join(tmp, name)
+    cases = {   # name -> (writer, the plane it must decode to, its pattern)
+        "lj92.cr2": (lambda: cr2.write_cr2(p("lj92.cr2"), img14), img14, "RGGB"),
+        "lj92.dng": (lambda: write_dng(p("lj92.dng"), img14, "GRBG", lj92=True),
+                     img14, "GRBG"),
+        "nikon.nef": (lambda: nef.write_nef(p("nikon.nef"), img14, bps=14, lossless=True),
+                      img14, "RGGB"),
+        "pentax.pef": (lambda: pef.write_pef(p("pentax.pef"), img12, bps=12), img12, "BGGR"),
+        "olympus.orf": (lambda: orf.write_orf(p("olympus.orf"), img12), img12, "GRBG"),
+        "panasonic.rw2": (lambda: rw2.write_rw2(p("panasonic.rw2"), img12), None, "BGGR"),
+        "canon.crw": (lambda: crw.write_crw(p("canon.crw"), smooth, lowbits=True),
+                      smooth, "RGGB"),
+        "sony.arw": (lambda: arw.write_arw(p("sony.arw"), arw.encode_arw2(sony), h, w),
+                     (sony << 3).astype(np.uint16), "RGGB"),
+        "minolta.mrw": (lambda: mrw.write_mrw(p("minolta.mrw"), img12), img12, "RGGB"),
+        "fuji.raf": (lambda: raf.write_raf(p("fuji.raf"), img14), img14, "GBRG"),
+    }
+    secs = {}
+    for name, (write, want, pattern) in cases.items():
+        t0 = time.perf_counter()
+        tracked = write()
+        t1 = time.perf_counter()
+        got = read_raw_cfa(p(name))
+        secs[name] = (t1 - t0, time.perf_counter() - t1)
+        # the Panasonic scheme quantizes random content: its encoder's own
+        # tracked decode is what a decoder must return
+        want = tracked if want is None else want
+        if got.meta["bayer_pattern"] != pattern or not np.array_equal(got.data[0][::-1], want):
+            fail(f"phase13c: {name} decodes to another plane or pattern "
+                 f"({got.meta['bayer_pattern']})")
+    lib = native.load_native()
+    if lib is None or os.path.dirname(os.path.realpath(lib._name)) != os.path.realpath(
+            str(native.BUILD_DIR)):
+        fail(f"phase13c: the native library is {lib and lib._name}, not under _build/")
+    if tree() != before:
+        fail("phase13c: files under siril-0.9_tpu/native/ changed")
+    print(f"phase13c {len(cases)} raw files of {w}x{h} decoded to their planted planes and "
+          f"patterns (write s, decode s: "
+          + ", ".join(f"{n} {a:.2f}/{b:.3f}" for n, (a, b) in secs.items())
+          + f"); the native library {os.path.basename(lib._name)} under _build/; nothing "
+          f"under native/ changed; the libav film bridge "
+          f"{'builds' if film_codec.available() else 'is not available (no libav)'} "
+          f"[{card}]", flush=True)
+
+
+def phase13(rs, rec, dev, card):
+    for part, run in (("a", lambda tmp: phase13a(rs, rec, dev, card, tmp)),
+                      ("b", lambda tmp: phase13b(rs, rec, dev, card, tmp)),
+                      ("c", lambda tmp: phase13c(card, tmp))):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            t0 = time.perf_counter()
+            run(tmp)
+            size = sum(os.path.getsize(os.path.join(r, n))
+                       for r, _, names in os.walk(tmp) for n in names)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(f"phase13{part} {time.perf_counter() - t0:.1f} s; {size} bytes of input and "
+              f"output files removed", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases", default="", metavar="N,N",
-        help="run only these of the phases 3 to 12, after the device and "
+        help="run only these of the phases 3 to 13, after the device and "
              "build phases (to compare two trees in one call; phase 8 "
              "brings phases 6 and 7 with it); such a run prints its timing "
              "lines and no result")
@@ -2266,6 +2777,11 @@ def main(argv=None) -> int:
         phase12(rs, rec, dev, card)
         torch.cuda.empty_cache()
         print(f"phase12 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- 13. a planetary film and a DSLR raw night through the command line
+    if wanted(13):
+        phase13(rs, rec, dev, card)
+        torch.cuda.empty_cache()
+        print(f"phase13 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} only: no result", flush=True)
         return 0

@@ -5,8 +5,12 @@ an obvious counterpart in ``siriltpu.<same path>``:
 
 - ``core.frame``, ``core.memory``: frames, sequence records, memory budgets;
 - ``io.fits``, ``io.ser``, ``io.seqfile``, ``io.sequence``: FITS and SER
-  files (a CFA SER debayered on read), ``.seq`` files, sequences (films
-  aside);
+  files (a CFA SER debayered on read), ``.seq`` files, sequences;
+- ``io.films``, ``io.avi``, ``io.mp4``, ``io.film_codec``: films (DIB and
+  MJPEG AVI, MJPEG MP4, other codecs through libav where it is);
+  ``io.raw``, ``io.rawproc``: camera raw files and libraw's postprocess;
+  ``io.export``: sequence export; ``io.formats``, ``io.conversion``: image
+  files and conversion;
 - ``ops.rejection`` (every rejection, linearfit included), ``ops.sortnet``,
   ``ops.stack``, ``ops.shift``, ``ops.stats``: stacking's per-pixel work;
 - ``ops.cuda.reject_stack`` <- ``siriltpu.ops.pallas.reject_stack``: the
@@ -27,11 +31,15 @@ an obvious counterpart in ``siriltpu.<same path>``:
   ``registration.global_star``: the registration entry points;
 - ``stacking.api``, ``pipelines.register_stack``: the stacking entry points;
 - ``pipelines.full``: BASELINE config 5 as one call, ``config5_pipeline``;
-- ``verify.oracle``: the rejection part of the NumPy oracle and its shift
-  gather;
-- ``utils.rounding``; and, of the port alone, ``utils.interop`` (data
-  crossing between the packages, uint16 at the boundary) and ``utils.build``
-  (the CUDA build).
+- ``cli``, ``core.config``, ``core.undo``: Siril's command line
+  (``python -m siriltpu_torch``), its settings and undo history;
+- ``verify.oracle``: the rejection part of the NumPy oracle, its shift
+  gather, and libraw's postprocess stages;
+- ``utils.rounding``, ``utils.timing``, ``utils.native`` (the host C++ of
+  ``siril-0.9_tpu/native/``, built into ``_build/``); ``testing``: synthetic
+  frames and the raw file writers; and, of the port alone,
+  ``utils.interop`` (data crossing between the packages, uint16 at the
+  boundary) and ``utils.build`` (the CUDA build).
 
 It imports torch and numpy only, never JAX or ``siriltpu``. The CUDA
 sources under ``csrc/`` are compiled with ``nvcc`` at first CUDA use

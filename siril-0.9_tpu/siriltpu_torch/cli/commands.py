@@ -10,11 +10,10 @@ Port of ``siriltpu.cli.commands``: the same verbs with the same syntax,
 output files and messages. Every verb that reaches the card passes
 ``state.device`` on (registration, stacking, PSF and star finding, the
 blurs, resize and rotate, the wavelet verbs, ``align_rgb``), after it has
-checked its arguments and state. The dispatcher catches what the JAX
+checked its arguments and state (``convert`` and ``seqexport`` too: a raw
+file's debayer, an export's resize). The dispatcher catches what the JAX
 package's catches (``CommandError``, ``ValueError``,
-``FileNotFoundError``); anything else, a CUDA error or the
-``NotImplementedError`` of a verb whose module is not ported yet
-(``seqexport``, a film ``seqload``, a film or raw ``convert``), reaches the
+``FileNotFoundError``); anything else, a CUDA error say, reaches the
 caller.
 """
 
@@ -776,16 +775,10 @@ def process_unselect(state, args):
     state.log(f"Unselected images {args[0]} to {args[1]}")
 
 
-def _film_not_ported(path: str):
-    return NotImplementedError(
-        f"loading the film {os.path.basename(path)} as a sequence needs "
-        "io/films.py, which siriltpu_torch does not port yet")
-
-
 @command("seqload", 1, "seqload seqname (load a sequence)")
 def process_seqload(state, args):
     name = args[0]
-    from siriltpu_torch.io.conversion import FILM_EXTENSIONS
+    from siriltpu_torch.io.films import FILM_EXTENSIONS, film_sequence
     if name.endswith(".ser") or os.path.exists(state.path(name + ".ser")):
         p = state.path(name if name.endswith(".ser") else name + ".ser")
         state.seq = ser_sequence(p)
@@ -793,7 +786,7 @@ def process_seqload(state, args):
           and os.path.exists(state.path(name))):
         # film as a sequence — the reference's SEQ_AVI type
         # (sequence.c seq_check_basic_data / films.c film_open_file)
-        raise _film_not_ported(state.path(name))
+        state.seq = film_sequence(state.path(name))
     else:
         seqpath = state.path(name[:-4] if name.endswith(".seq") else name)
         if not os.path.exists(seqpath + ".seq"):
@@ -812,7 +805,7 @@ def process_seqload(state, args):
             if film_ext is None:
                 raise CommandError(
                     f"No sequence '{name}' found in {state.cwd}")
-            raise _film_not_ported(state.path(f"{name}.{film_ext}"))
+            state.seq = film_sequence(state.path(f"{name}.{film_ext}"))
     state.seq.seq_dir = state.cwd
     state.log(f"Sequence loaded: {state.seq.seqname} "
               f"({state.seq.number} images)")
@@ -1004,7 +997,7 @@ def process_convert(state, args):
     debayer = "-debayer" in args
     n = convert_dir(state.cwd, args[0], to_ser=to_ser, debayer=debayer,
                     fits_ext=state.settings.fits_extension,
-                    settings=state.settings)
+                    settings=state.settings, device=state.device)
     state.log(f"Converted {n} files to sequence {args[0]}")
 
 
@@ -1053,10 +1046,14 @@ def process_redo(state, args):
 @command("seqexport", 2, "seqexport basename format "
                          "(ser|avi|mjpeg|mp4|webm|fits) [fps] [-norm]")
 def process_seqexport(state, args):
-    state.require_seq()
-    raise NotImplementedError(
-        "seqexport needs io/export.py, which siriltpu_torch does not port "
-        "yet")
+    from siriltpu_torch.io.export import ExportArgs, export_sequence
+    seq = state.require_seq()
+    fps = float(args[2]) if len(args) > 2 and not args[2].startswith("-") else 25.0
+    norm = "-norm" in args
+    ea = ExportArgs(basename=args[0], fmt=args[1], fps=fps, normalize=norm,
+                    crop=state.selection)
+    path = export_sequence(seq, ea, directory=state.cwd, device=state.device)
+    state.log(f"Exported sequence -> {path}")
 
 
 @command("rgbcomp", 3, "rgbcomp r_file g_file b_file [lum_file]")

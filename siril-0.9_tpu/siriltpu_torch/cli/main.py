@@ -87,9 +87,12 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     if args.formats:
+        from siriltpu_torch.io.films import FILM_EXTENSIONS
         print("FITS (fit/fits/fts), SER v2/v3, BMP, PNM (ppm/pgm/pnm), "
-              "PIC (IRIS), TIFF, JPEG, PNG (through Pillow or imageio); "
-              "films and DSLR raw files are not ported yet")
+              "PIC (IRIS), TIFF, JPEG, PNG, DNG (uncompressed + "
+              "lossless-JPEG), films: " + "/".join(FILM_EXTENSIONS)
+              + " (AVI DIB+MJPEG and MP4/MOV MJPEG natively; "
+                "others need an ffmpeg-backed imageio)")
         return 0
 
     state = make_state(args.directory, args.initfile, device=args.device)

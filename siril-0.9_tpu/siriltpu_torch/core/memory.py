@@ -25,6 +25,18 @@ def get_available_memory_mb() -> int:
     return 2048
 
 
+def get_used_memory_mb() -> int:
+    """Resident set size of this process in MB (update_used_memory)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) // 1024
+    except OSError:
+        pass
+    return 0
+
+
 def stacking_block_rows(rx: int, nb_frames: int, *,
                         memory_percent: float = 0.9,
                         nthreads: int = 1,
@@ -63,5 +75,5 @@ def starfind_chunk_frames(h: int, w: int, *, device, n_devices: int = 1,
     return c
 
 
-__all__ = ["get_available_memory_mb", "stacking_block_rows",
+__all__ = ["get_available_memory_mb", "get_used_memory_mb", "stacking_block_rows",
            "get_device_memory_bytes", "starfind_chunk_frames"]

@@ -1,16 +1,17 @@
 """Conversion subsystem: any supported input → FITS sequence or SER.
 
-Port of ``siriltpu.io.conversion``: the SER and image-format branches,
-copied. Films and DSLR raw files are not ported yet: their branches raise
-``NotImplementedError`` naming ``io/films.py`` and ``io/raw.py``.
+Port of ``siriltpu.io.conversion``: copied, but ``convert_dir`` takes the
+``device`` that a large VNG or AHD debayer runs on (``io.raw.read_raw``,
+``io.ser``).
 
 Reference: src/io/conversion.c — flags CONV1X3/3X1/1X1, CONVDSTSER,
 CONVMULTIPLE (src/core/siril.h:155-163), worker ``convert_thread_worker``
 (:509-662), ``debayer_if_needed`` (:736), ``any_to_fits`` (:802), and the
 raw-extension table with per-vendor Bayer patterns (:51-74).
 
-Inputs: SER (split into frames), PNM, BMP, PIC, and PNG/JPG/TIFF via
-imageio.
+Inputs: FITS, SER (split into frames), PNM, BMP/PNG/JPG/TIFF via
+imageio, and DSLR raw (CR2/NEF/ARW/... via rawpy when available;
+uncompressed DNG always, through the built-in decoder in io/raw.py).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import List, Optional
 
 from siriltpu_torch.core.frame import Frame
 from siriltpu_torch.io import fits as fits_io
+from siriltpu_torch.io.films import FILM_EXTENSIONS
 from siriltpu_torch.io.formats import load_any
 from siriltpu_torch.io.ser import SerFile
 
@@ -35,10 +37,6 @@ RAW_EXTENSIONS = {
     "rw2": "BGGR", "pef": "BGGR", "ptx": None, "x3f": None,
     "srw": "BGGR", "arw": "RGGB",
 }
-
-#: film containers (``siriltpu.io.films.FILM_EXTENSIONS``), kept here until
-#: the port has ``io/films.py``
-FILM_EXTENSIONS = ("avi", "mpg", "mpeg", "mp4", "webm", "mov", "mkv")
 
 IMAGE_EXTENSIONS = ("png", "jpg", "jpeg", "tif", "tiff", "bmp", "ppm",
                     "pgm", "pnm", "pic")
@@ -55,12 +53,13 @@ def convertible_files(directory: str) -> List[str]:
     return out
 
 
-def convert_dir(directory: str, basename: str, *, to_ser: bool = False,
-                fits_ext: str = "fit", debayer: bool = False,
-                settings=None) -> int:
+def convert_dir(directory: str, basename: str, *, device,
+                to_ser: bool = False, fits_ext: str = "fit",
+                debayer: bool = False, settings=None) -> int:
     """Convert every supported file in ``directory`` into a numbered FITS
-    sequence ``<basename>NNNNN.<ext>`` (or one SER when ``to_ser``).
-    ``settings`` drives the raw branch, which is not ported yet."""
+    sequence ``<basename>NNNNN.<ext>`` (or one SER when ``to_ser``). A VNG
+    or AHD debayer of 2^20 pixels or more, of a raw file or a CFA SER, runs
+    on ``device`` (None refuses it)."""
     files = convertible_files(directory)
     index = 1
     ser_out: Optional[SerFile] = None
@@ -71,17 +70,35 @@ def convert_dir(directory: str, basename: str, *, to_ser: bool = False,
         if ext == "ser":
             ser = SerFile.open(path)
             for i in range(ser.frame_count):
-                frames.append(ser.read_frame(i, debayer=debayer))
+                frames.append(ser.read_frame(i, debayer=debayer, device=device))
         elif ext in FILM_EXTENSIONS:
-            # the film branch of convert_thread_worker (conversion.c:551-600)
-            raise NotImplementedError(
-                f"converting the film {os.path.basename(path)} needs "
-                "io/films.py, which siriltpu_torch does not port yet")
+            # film → frames, like the reference's film branch of
+            # convert_thread_worker (conversion.c:551-600)
+            from siriltpu_torch.io.films import FilmFile
+            try:
+                film = FilmFile.open(path)
+            except RuntimeError as exc:
+                print(f"Skipping {os.path.basename(path)}: {exc}")
+                continue
+            for i in range(film.nb_frames):
+                frames.append(film.read_frame(i))
         elif ext in RAW_EXTENSIONS:
-            # readraw_in_cfa / readraw (conversion.c:736-802)
-            raise NotImplementedError(
-                f"converting the raw file {os.path.basename(path)} needs "
-                "io/raw.py, which siriltpu_torch does not port yet")
+            # readraw_in_cfa / readraw via rawpy or the built-in DNG
+            # decoder (io/raw.py). The decoder's own pattern (from
+            # CFAPattern / the libraw filter descriptor) wins over the
+            # per-vendor default, like use_bayer_header
+            # (conversion.c:753-767).
+            from siriltpu_torch.io.raw import read_raw
+            try:
+                frame = read_raw(path, cfa=not debayer, settings=settings,
+                                 device=device)
+            except (ValueError, OSError) as exc:
+                print(f"Skipping {os.path.basename(path)}: {exc}")
+                continue
+            if frame.meta.get("bayer_pattern") is None and \
+                    RAW_EXTENSIONS[ext]:
+                frame.meta["bayer_pattern"] = RAW_EXTENSIONS[ext]
+            frames.append(frame)
         else:
             frame = load_any(path)
             if frame is None:
@@ -105,5 +122,4 @@ def convert_dir(directory: str, basename: str, *, to_ser: bool = False,
     return index - 1
 
 
-__all__ = ["convert_dir", "convertible_files", "RAW_EXTENSIONS",
-           "FILM_EXTENSIONS"]
+__all__ = ["convert_dir", "convertible_files", "RAW_EXTENSIONS"]

@@ -2,9 +2,7 @@
 data and cached statistics.
 
 Port of ``siriltpu.io.sequence``, which is NumPy already: copied without
-change, but for two things. Films: their reader (``io/films.py``) is not
-ported yet, so ``check_seq`` raises ``NotImplementedError`` on a directory
-that holds one. And a SER sequence carries ``debayer_device``, the device
+change, but that a SER sequence carries ``debayer_device``, the device
 its reads debayer a large frame on by VNG or AHD (``ops/demosaic.py``).
 
 Reference: src/io/sequence.c (struct sequ src/core/siril.h:328-374,
@@ -211,9 +209,9 @@ def get_index_and_basename(filename: str):
     return base, int(digits), len(digits), ext
 
 
-#: containers the reference discovers as film sequences
-#: (check_for_film_extensions, sequence.c:231-247)
-FILM_EXTENSIONS = ("avi", "mpg", "mpeg", "mp4", "webm", "mov", "mkv")
+def _film_exts():
+    from siriltpu_torch.io.films import FILM_EXTENSIONS
+    return FILM_EXTENSIONS
 
 
 def check_seq(directory: str = ".", *, force: bool = False,
@@ -222,8 +220,8 @@ def check_seq(directory: str = ".", *, force: bool = False,
     (reference ``check_seq``, src/io/sequence.c:145-280 +
     ``buildseqfile`` seqfile.c:374).
 
-    Groups numbered FITS files by basename, plus every ``.ser`` file;
-    a film file raises ``NotImplementedError``. Existing ``.seq`` files are kept unless ``force``.
+    Groups numbered FITS files by basename, plus every ``.ser`` file.
+    Existing ``.seq`` files are kept unless ``force``.
     """
     from siriltpu_torch.io.seqfile import read_seqfile, write_seqfile
 
@@ -238,12 +236,15 @@ def check_seq(directory: str = ".", *, force: bool = False,
             seq = ser_sequence(full)
             sequences.append(seq)
             continue
-        if any(low.endswith("." + e) for e in FILM_EXTENSIONS):
+        if any(low.endswith("." + e) for e in _film_exts()):
             # films are sequences too (reference check_seq discovers
             # them via check_for_film_extensions, sequence.c:231-247)
-            raise NotImplementedError(
-                f"{path}: film sequences are not ported to siriltpu_torch "
-                "yet: they need io/films.py")
+            try:
+                from siriltpu_torch.io.films import film_sequence
+                sequences.append(film_sequence(full))
+            except (RuntimeError, ValueError, OSError):
+                pass  # undecodable container: not a sequence
+            continue
         if not any(low.endswith("." + e) for e in extensions):
             continue
         parsed = get_index_and_basename(path)

@@ -1,7 +1,7 @@
 """Integer translation of images with a fill value — the registration-
 shift primitive of the sum, max and min stacks.
 
-Port of ``siriltpu.ops.shift.shift2d``. Reference semantics
+Port of ``siriltpu.ops.shift``. Reference semantics
 (src/stacking/stacking.c:298-319, :957-971, :1080-1094):
 ``out[y, x] = in[y - shifty, x - shiftx]`` for in-bounds source coords,
 else ``fill``. Rows are bottom-up; shifts come from regdata.
@@ -38,4 +38,12 @@ def shift2d(img: torch.Tensor, shiftx: int, shifty: int, fill: int = 0,
     return out
 
 
-__all__ = ["shift2d"]
+def shift_mask(shape, shiftx: int, shifty: int, skip_origin: bool = False, *,
+               device) -> torch.Tensor:
+    """Just the validity mask of :func:`shift2d` (bool, (H, W)), on
+    ``device``."""
+    return shift2d(torch.ones(shape, dtype=torch.bool, device=device), shiftx,
+                   shifty, fill=False, skip_origin=skip_origin)
+
+
+__all__ = ["shift2d", "shift_mask"]

@@ -1,9 +1,7 @@
 """Per-layer image statistics with exact Siril parity.
 
 Port of ``siriltpu.ops.stats``, which is NumPy already: copied without
-change, on the host, without the helpers that ``statistics`` does not
-call (``compute_histogram``, ``img_stats_noise``). The stacking API's
-normalization is its only user in the port (``stacking.api``).
+change, on the host.
 
 Reference: src/algos/statistics.c:207-326 (entry ``statistics()``),
 src/algos/quantize.c (cfitsio-derived mean/sigma/noise), GSL stats.
@@ -54,6 +52,18 @@ NITER = 3         # quantize.c:36
 
 
 # ------------------------------------------------------------------ histogram
+
+def compute_histogram(data: np.ndarray, norm: int = 65535) -> np.ndarray:
+    """GSL-compatible histogram: norm+1 uniform bins over [0, norm].
+
+    Integer value v maps to bin v for v < norm; v == norm falls on the
+    upper edge and is dropped (gsl_histogram semantics, used by
+    computeHisto, src/gui/histogram.c:111-127).
+    """
+    counts = np.bincount(data.reshape(-1), minlength=norm + 1).astype(np.int64)
+    counts[norm] = 0  # upper-edge exclusion
+    return counts
+
 
 def _hist_median(counts: np.ndarray, n: int, nullcheck: bool) -> float:
     """siril_stats_ushort_median (statistics.c:47-63): first bin index where
@@ -153,6 +163,90 @@ def fn_noise1(data: np.ndarray, nullcheck: bool = False) -> float:
         xnoise = float((sd[(nrows - 1) // 2] + sd[nrows // 2]) / 2.0)
     return 0.70710678 * xnoise
 
+
+
+def img_stats_noise(data: np.ndarray, nullcheck: bool = False):
+    """Full cfitsio-style noise battery (quantize.c FnNoise5_ushort
+    :260-657): per row, sliding 9-pixel windows over the valid pixels
+    give absolute 2nd/3rd/5th-order differences
+
+        d2 = |v5 - v7|                       (unless v5==v6==v7)
+        d3 = |2 v5 - v3 - v7|                (unless v3..v7 constant)
+        d5 = |6 v5 - 4 v3 - 4 v7 + v1 + v9|  (   "          "     )
+
+    lower-median per row (quick_select, quantize.c:802-858), then the
+    mean-of-two-middles median across rows, scaled by 1.0483579 /
+    0.6052697 / 0.1772048 (:640-645).
+
+    Returns (ngood, minval, maxval, noise2, noise3, noise5).
+
+    Divergence (documented, PARITY.md): when a row has constant runs so
+    that nvals2 < nvals, the C median over ``differences2`` reads
+    slots beyond nvals2 that hold garbage from quick_select's in-place
+    permutation of the *previous* row; we zero-pad instead.
+    """
+    a = np.asarray(data, dtype=np.int64)
+    if a.ndim == 1:
+        a = a[None, :]
+    ny, nx = a.shape
+    if nx < 9:  # treat the entire array as a single row (quantize.c:291-294)
+        a = a.reshape(1, -1)
+        ny, nx = a.shape
+    valid_all = (a != 0) if nullcheck else np.ones_like(a, dtype=bool)
+    ngood = 0
+    minval, maxval = 65535, 0
+    diffs2, diffs3, diffs5 = [], [], []
+    if nx < 9:  # still too short: range only (quantize.c:296-324)
+        v = a[valid_all]
+        return (int(v.size), int(v.min()) if v.size else 65535,
+                int(v.max()) if v.size else 0, 0.0, 0.0, 0.0)
+    for r in range(ny):
+        w = a[r][valid_all[r]]
+        m = w.size
+        if m == 0:
+            continue
+        ngood += m
+        minval = min(minval, int(w.min()))
+        maxval = max(maxval, int(w.max()))
+        if m < 9:
+            continue
+        # windows: v1..v9 = w[i..i+8] for i in [0, m-9]
+        v1, v3, v4, v5, v6, v7, v9 = (w[0:m-8], w[2:m-6], w[3:m-5],
+                                      w[4:m-4], w[5:m-3], w[6:m-2], w[8:m])
+        c2 = ~((v5 == v6) & (v6 == v7))
+        c3 = ~((v3 == v4) & (v4 == v5) & (v5 == v6) & (v6 == v7))
+        d2 = np.abs(v5 - v7)[c2]
+        d3 = np.abs(2 * v5 - v3 - v7)[c3]
+        d5 = np.abs(6 * v5 - 4 * v3 - 4 * v7 + v1 + v9)[c3]
+        nvals, nvals2 = d3.size, d2.size
+        if nvals == 0:
+            continue
+        if nvals == 1:
+            if nvals2 == 1:
+                diffs2.append(float(d2[0]))
+            diffs3.append(float(d3[0]))
+            diffs5.append(float(d5[0]))
+        else:
+            if nvals2 > 1:
+                # C medians differences2 over nvals slots (zero-pad)
+                pad = np.concatenate([d2, np.zeros(nvals - nvals2,
+                                                   np.int64)])
+                diffs2.append(float(np.sort(pad)[(nvals - 1) // 2]))
+            diffs3.append(float(np.sort(d3)[(nvals - 1) // 2]))
+            diffs5.append(float(np.sort(d5)[(nvals - 1) // 2]))
+
+    def rows_median(d):
+        if not d:
+            return 0.0
+        if len(d) == 1:
+            return d[0]
+        s = np.sort(np.asarray(d))
+        return (s[(len(d) - 1) // 2] + s[len(d) // 2]) / 2.0
+
+    return (ngood, minval, maxval,
+            1.0483579 * rows_median(diffs2),
+            0.6052697 * rows_median(diffs3),
+            0.1772048 * rows_median(diffs5))
 
 
 def _clip_stdev(d: np.ndarray) -> float:
@@ -350,7 +444,8 @@ def statistics(frame, layer: int = 0, selection: Optional[Rect] = None,
 
 
 __all__ = [
-    "statistics", "fn_noise1", "ikss_from_histogram",
+    "statistics", "compute_histogram", "fn_noise1", "img_stats_noise",
+    "ikss_from_histogram",
     "STATS_BASIC", "STATS_AVGDEV", "STATS_MAD", "STATS_BWMV", "STATS_MAIN",
     "STATS_IKSS", "STATS_EXTRA",
 ]

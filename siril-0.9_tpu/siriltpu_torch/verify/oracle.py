@@ -1,7 +1,8 @@
 """NumPy float64 oracle: literal re-derivations of the reference C code's
 per-pixel rejection, the exact path that the linearfit hybrid re-runs its
 knife-edge pixels through (``ops.rejection.linearfit_hybrid_block``,
-``stacking.api``), and the shift gather of ``ops.imops.shift_image``.
+``stacking.api``), the shift gather of ``ops.imops.shift_image``, and
+libraw's postprocess stages that ``io.rawproc`` is held to.
 
 The port's own copy of those parts of ``siriltpu.verify.oracle``.
 Everything here favors clarity/exactness over speed. Each function cites
@@ -317,5 +318,125 @@ def normalize_pixel_vector(pix: np.ndarray, mode: str, scale, offset, mul) -> np
     raise ValueError(mode)
 
 
+# -------------------- libraw/dcraw postprocess (readraw knobs) ----------
+# The reference's demosaiced raw path (image_formats_libraries.c:664-828)
+# delegates to libraw's dcraw_process with no_auto_bright=1,
+# output_color=0, output_bps=16. These literal scalar re-derivations of
+# dcraw.c's scale_colors / gamma_curve pin the production implementation
+# in siriltpu.io.rawproc.
+
+def libraw_gamma_curve(pwr: float, ts: float, imax: float) -> np.ndarray:
+    """Literal dcraw.c ``gamma_curve(pwr, ts, 2, imax)``: the 48-step
+    bisection for the linear-toe split and the 0x10000-entry forward
+    LUT. libraw calls it from its output stage with
+    ``imax = (t_white << 3) / bright`` and t_white = 0x2000 under
+    no_auto_bright.
+
+    Each entry is stored as the C stores it into an unsigned short,
+    ``int(0x10000 * v) & 0xffff``: where ``v`` reaches 1.0 (or the
+    ``g[0] == 0`` log branch gives ``v < 0``) the word wraps as in dcraw,
+    where the JAX package's copy raises ``OverflowError``. The production
+    ``io.rawproc.gamma_curve`` clips instead; the two differ only there."""
+    import math
+    g = [pwr, ts, 0.0, 0.0, 0.0, 0.0]
+    bnd = [0.0, 0.0]
+    bnd[1 if g[1] >= 1 else 0] = 1.0
+    if g[1] and (g[1] - 1) * (g[0] - 1) <= 0:
+        for _ in range(48):
+            g[2] = (bnd[0] + bnd[1]) / 2
+            if g[0]:
+                cond = (math.pow(g[2] / g[1], -g[0]) - 1) / g[0] \
+                    - 1 / g[2] > -1
+            else:
+                cond = g[2] / math.exp(1 - 1 / g[2]) < g[1]
+            bnd[1 if cond else 0] = g[2]
+        g[3] = g[2] / g[1]
+        if g[0]:
+            g[4] = g[2] * (1 / g[0] - 1)
+    curve = np.empty(0x10000, dtype=np.uint16)
+    for i in range(0x10000):
+        curve[i] = 0xffff
+        r = i / imax
+        if r < 1:
+            if r < g[3]:
+                v = r * g[1]
+            elif g[0]:
+                v = math.pow(r, g[0]) * (1 + g[4]) - g[4]
+            else:
+                v = math.log(r) * g[2] + 1
+            curve[i] = int(0x10000 * v) & 0xffff
+    return curve
+
+
+def _fc3(pattern: str, row: int, col: int) -> int:
+    ch = {"R": 0, "G": 1, "B": 2}
+    p = pattern.upper()
+    return ch[p[(row % 2) * 2 + (col % 2)]]
+
+
+def libraw_auto_wb(cfa: np.ndarray, pattern: str, maximum: int = 65535,
+                   black: int = 0) -> np.ndarray:
+    """Literal dcraw scale_colors use_auto_wb branch: 8x8 blocks, any
+    sample above maximum-25 skips the whole block (the goto), sums of
+    max(val - black, 0) per filter color, pre_mul = count/sum."""
+    h, w = cfa.shape
+    dsum = [0.0] * 8
+    for row in range(0, h - 7, 8):
+        for col in range(0, w - 7, 8):
+            s = [0.0] * 8
+            skip = False
+            for y in range(row, row + 8):
+                for x in range(col, col + 8):
+                    c = _fc3(pattern, y, x)
+                    val = int(cfa[y, x])
+                    if val > maximum - 25:
+                        skip = True
+                        break
+                    val -= black
+                    if val < 0:
+                        val = 0
+                    s[c] += val
+                    s[c + 4] += 1
+                if skip:
+                    break
+            if not skip:
+                for c in range(8):
+                    dsum[c] += s[c]
+    pre = np.ones(4)
+    for c in range(4):
+        if dsum[c]:
+            pre[c] = dsum[c + 4] / dsum[c]
+    pre[3] = 0.0
+    return pre
+
+
+def libraw_scale_colors(cfa: np.ndarray, pattern: str,
+                        pre_mul: np.ndarray, maximum: int = 65535,
+                        black: int = 0) -> np.ndarray:
+    """Literal dcraw scale_colors tail: green fixups, divide by the
+    minimum multiplier (highlight=0 -> dmax=dmin), scale by
+    65535/(maximum-black), per-sample truncate-toward-zero + CLIP;
+    zero samples skipped."""
+    pre = [float(x) for x in pre_mul]
+    if pre[1] == 0:
+        pre[1] = 1.0
+    if pre[3] == 0:
+        pre[3] = pre[1]
+    dmin = min(pre)
+    scale = [p / dmin * 65535.0 / (maximum - black) for p in pre]
+    h, w = cfa.shape
+    out = np.zeros((h, w), dtype=np.uint16)
+    for y in range(h):
+        for x in range(w):
+            val = int(cfa[y, x])
+            if not val:
+                continue
+            val -= black
+            v = int(val * scale[_fc3(pattern, y, x)])
+            out[y, x] = min(max(v, 0), 65535)
+    return out
+
+
 __all__ = ["c_reject_block", "normalize_pixel_vector", "gsl_median_sorted",
-           "gsl_sd", "gsl_fit_linear", "shift_gather"]
+           "gsl_sd", "gsl_fit_linear", "shift_gather", "libraw_gamma_curve",
+           "libraw_auto_wb", "libraw_scale_colors"]

@@ -1,12 +1,12 @@
 """The command line of siriltpu_torch against siriltpu's: ``cli/commands.py``,
 ``cli/main.py``, ``cli/state.py``, ``__main__.py``.
 
-Every case of tests/test_cli.py but the CR2 conversion (which waits for
-``io/raw.py``) runs here through both packages, on the same seeded NumPy
-inputs written to two directories, one for each package. Tolerances:
+Every case of tests/test_cli.py runs here through both packages, on the
+same seeded NumPy inputs written to two directories, one for each package.
+Tolerances:
 
 - files are compared byte for byte: FITS (but the value of its ``DATE``
-  card, the time it was written), ``.seq``, SER, BMP, PNM, ``.lst``,
+  card, the time it was written), ``.seq``, SER, AVI, BMP, PNM, ``.lst``,
   ``.dat`` and ``.svg``; images word for word; logs line for line. That
   holds for every verb whose work is host NumPy, and for those on the
   device whose result is exact (integer DFT shifts, the sigma and median
@@ -548,32 +548,67 @@ def test_register_global_verb_rgb_ser(jx, tmp_path):
         assert d.max() <= 3 and (d != 0).mean() <= 0.05, (i, d.max())
 
 
-# ------------------------------------------------------ the unported verbs
+# ------------------------------------------ films, raw files and export
 
 @pytest.mark.parametrize("case", ["seqexport", "seqload_film_name",
                                   "seqload_film_base", "convert_film",
                                   "convert_raw"])
-def test_unported_verbs_name_their_module(tmp_path, case):
-    """A verb whose module the port lacks raises NotImplementedError naming
-    it; the dispatcher does not swallow it."""
-    state = tmain.make_state(str(tmp_path), device="cpu")
+def test_unported_verbs_name_their_module(pair, jx, case):
+    """The verbs that wait for films, raw files and export (once stubs of
+    the port): the same input to both packages gives the same return code,
+    log and files. ``seqexport`` of a FITS sequence to an AVI; ``seqload``
+    of a DIB AVI by its name and by its basename, then ``seqexport`` of it
+    to a SER; ``convert`` of an MJPEG MP4 and of two CR2 files (the
+    ``tests/test_cli.py`` case), as a CFA sequence and debayered."""
+    from siriltpu.io import avi as javi, mp4 as jmp4
+    from siriltpu.testing.cr2 import write_cr2 as jwrite_cr2
+    from siriltpu_torch.io import avi as tavi, mp4 as tmp4
+    from siriltpu_torch.testing.cr2 import write_cr2 as twrite_cr2
+    rng = np.random.default_rng(40)
+    frames = rng.integers(0, 256, (3, 1, 12, 18)).astype(np.uint16)
+    sides = ((pair.jdir, jx.frame.Frame, javi, jmp4, jwrite_cr2),
+             (pair.tdir, TFrame, tavi, tmp4, twrite_cr2))
     if case == "seqexport":
-        frames = np.zeros((2, 1, 8, 8), np.uint16)
         for i, f in enumerate(frames):
-            tfits.write_fits(str(tmp_path / f"e{i+1:03d}.fit"), TFrame(f))
-        assert tcmd.process_command(state, "seqload e") == 0
-        line, module = "seqexport movie avi", "io/export.py"
+            pair.write(f"e{i + 1:03d}.fit", f * 200)
+        assert pair.run("seqload e") == 0
+        lines, outs = ["seqexport movie avi 12 -norm"], ["movie.avi"]
     elif case.startswith("seqload"):
-        (tmp_path / "night.avi").write_bytes(b"RIFF")
-        line = "seqload night.avi" if case.endswith("name") else "seqload night"
-        module = "io/films.py"
+        for d, frame_cls, avi, _, _ in sides:
+            wtr = avi.AviWriter(str(d / "night.avi"), 18, 12, fps=30.0)
+            for f in frames:
+                wtr.write_frame(frame_cls(f), 0, 255)
+            wtr.close()
+        name = "night.avi" if case.endswith("name") else "night"
+        lines, outs = [f"seqload {name}", "seqexport cap ser"], ["cap.ser"]
+    elif case == "convert_film":
+        for d, frame_cls, avi, mp4, _ in sides:
+            wtr = mp4.Mp4Writer(str(d / "clip.mp4"), 18, 12, 25.0)
+            for f in frames:
+                wtr.add_frame(avi._frame_to_jpeg(frame_cls(f), 90, 0, 255))
+            wtr.close()
+        lines, outs = ["convert lights"], [f"lights{k:05d}.fit" for k in (1, 2, 3)]
     else:
-        name, module = (("clip.mp4", "io/films.py") if case == "convert_film"
-                        else ("IMG_0001.CR2", "io/raw.py"))
-        (tmp_path / name).write_bytes(b"\0" * 16)
-        line = "convert lights"
-    with pytest.raises(NotImplementedError, match=module):
-        tcmd.process_command(state, line)
+        cfas = rng.integers(0, 1 << 14, (2, 32, 48)).astype(np.uint16)
+        for d, _, _, _, write_cr2 in sides:
+            for k, cfa in enumerate(cfas):
+                write_cr2(str(d / f"IMG_{k:04d}.CR2"), cfa)
+        lines = ["convert lights", "convert rgb -debayer"]
+        outs = [f"{b}{k:05d}.fit" for b in ("lights", "rgb") for k in (1, 2)]
+    for line in lines:
+        assert pair.run(line) == 0, line
+    for name in outs:
+        pair.same_file(name)
+    pair.same_log()
+    if case.startswith("seqload"):
+        assert pair.t.seq.seqtype == pair.j.seq.seqtype == "film"
+        assert pair.t.seq.number == 3
+        for i in range(3):
+            np.testing.assert_array_equal(pair.t.seq.read_frame(i).data, frames[i])
+    if case == "convert_raw":
+        got = tfits.read_fits(str(pair.tdir / "lights00001.fit"))
+        np.testing.assert_array_equal(got.data[0], cfas[0][::-1])
+        assert tfits.read_fits(str(pair.tdir / "rgb00002.fit")).nlayers == 3
 
 
 # ------------------------------------------------------ python -m, no JAX

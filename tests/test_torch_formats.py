@@ -235,9 +235,9 @@ def test_convert_dir_matches_jax(jx, tmp_path, kind, flags):
         nj = jx.conversion.convert_dir(str(jd), "out", **flags)
     except ValueError as e:          # mixed geometry into one SER
         with pytest.raises(ValueError, match=str(e)):
-            tconv.convert_dir(str(td), "out", **flags)
+            tconv.convert_dir(str(td), "out", device="cpu", **flags)
         return
-    assert tconv.convert_dir(str(td), "out", **flags) == nj
+    assert tconv.convert_dir(str(td), "out", device="cpu", **flags) == nj
     outs = sorted(n for n in os.listdir(jd) if n.startswith("out"))
     assert outs == sorted(n for n in os.listdir(td) if n.startswith("out"))
     assert outs
@@ -248,18 +248,24 @@ def test_convert_dir_matches_jax(jx, tmp_path, kind, flags):
             assert (td / name).read_bytes() == (jd / name).read_bytes(), name
 
 
-def test_convert_dir_film_and_raw_name_their_module(tmp_path):
-    """The branches the port lacks raise NotImplementedError naming the
-    module, and the film table is the JAX package's."""
+def test_convert_dir_film_and_raw_name_their_module(jx, tmp_path, capsys):
+    """The film and raw branches (once stubs of the port) on files no
+    decoder reads, a truncated AVI and a NEF of zeros: both packages skip
+    them with the same message and convert nothing; the film table is the
+    JAX package's."""
     from siriltpu.io.films import FILM_EXTENSIONS
     assert tconv.FILM_EXTENSIONS == FILM_EXTENSIONS
-    (tmp_path / "clip.avi").write_bytes(b"RIFF")
-    with pytest.raises(NotImplementedError, match="io/films.py"):
-        tconv.convert_dir(str(tmp_path), "x")
-    os.unlink(tmp_path / "clip.avi")
-    (tmp_path / "IMG_1.NEF").write_bytes(b"\0" * 8)
-    with pytest.raises(NotImplementedError, match="io/raw.py"):
-        tconv.convert_dir(str(tmp_path), "x")
+    jd, td = dirs(tmp_path)
+    for d in (jd, td):
+        (d / "clip.avi").write_bytes(b"RIFF")
+        (d / "IMG_1.NEF").write_bytes(b"\0" * 8)
+    capsys.readouterr()
+    assert jx.conversion.convert_dir(str(jd), "x") == 0
+    want = capsys.readouterr().out
+    assert tconv.convert_dir(str(td), "x", device="cpu") == 0
+    assert capsys.readouterr().out == want.replace(str(jd), str(td))
+    assert want.count("Skipping") == 2
+    assert sorted(os.listdir(td)) == sorted(os.listdir(jd)) == ["IMG_1.NEF", "clip.avi"]
 
 
 # ------------------------------------------------------------------ settings
@@ -337,3 +343,27 @@ def test_undo_history_matches_jax(jx, tmp_path):
     jh.flush()
     assert os.listdir(td) == [] and os.listdir(jd) == []
     assert th.undo(cur_t) is None and th.redo(cur_t) is None
+
+
+# -------------------------------------------------------------------- timing
+
+@pytest.mark.parametrize("seconds", [0.0004, 0.25, 5, 59.9, 90, 3599, 7200])
+def test_format_time_matches_jax(seconds):
+    from siriltpu.utils.timing import format_time
+    from siriltpu_torch.utils.timing import format_time as tformat_time
+    assert tformat_time(seconds) == format_time(seconds)
+
+
+def test_timed_and_device_trace(tmp_path):
+    """``timed`` logs the reference's line; ``device_trace`` writes a
+    torch.profiler Chrome trace of the block (on the CPU here)."""
+    import json
+    from siriltpu_torch.utils.timing import device_trace, timed
+    logs = []
+    with timed("op", log=logs.append):
+        pass
+    assert logs[0].startswith("Execution time [op]: ") and logs[0].endswith("ms")
+    with device_trace(str(tmp_path / "trace")):
+        torch.ones(64).sum()
+    events = json.load(open(tmp_path / "trace" / "trace.json"))["traceEvents"]
+    assert any("aten::sum" in e.get("name", "") for e in events)

@@ -135,10 +135,30 @@ def test_check_seq_discovers_what_jax_discovers(tmp_path):
 
 
 def test_check_seq_film_names_its_roadmap_item(tmp_path):
-    (tmp_path / "movie.avi").write_bytes(b"RIFF")
-    with pytest.raises(NotImplementedError, match="io/films.py"):
-        tsequence.check_seq(str(tmp_path))
-    assert tsequence.FILM_EXTENSIONS == jsequence._film_exts()
+    """A film beside a FITS sequence (once a stub of the port): both
+    packages find the same sequences, the film among them, and skip a
+    film no decoder reads."""
+    from siriltpu.io.avi import AviWriter
+    frames = make_frames()
+    dirs = [str(tmp_path / "j"), str(tmp_path / "t")]
+    for d in dirs:
+        os.makedirs(d)
+        write_fits_dir(d, frames[:3])
+        wtr = AviWriter(os.path.join(d, "movie.avi"), W, H, fps=20.0)
+        for f in frames:
+            wtr.write_frame(jframe.Frame(f), 0, 2000)
+        wtr.close()
+        with open(os.path.join(d, "broken.avi"), "wb") as f:
+            f.write(b"RIFF")
+    want, got = jsequence.check_seq(dirs[0]), tsequence.check_seq(dirs[1])
+    assert [(s.seqname, s.seqtype, s.number, s.rx, s.ry) for s in got] == \
+        [(s.seqname, s.seqtype, s.number, s.rx, s.ry) for s in want]
+    film = [s for s in got if s.seqtype == "film"]
+    assert [s.seqname for s in film] == ["movie"] and film[0].number == F
+    np.testing.assert_array_equal(film[0].read_frame(4).data,
+                                  [s for s in want if s.seqtype == "film"][0]
+                                  .read_frame(4).data)
+    assert tsequence._film_exts() == jsequence._film_exts()
 
 
 @pytest.mark.parametrize("kind", ["regular", "ser"])
@@ -377,3 +397,10 @@ def test_memory_budget_matches_jax(monkeypatch):
     monkeypatch.undo()
     assert tmemory.get_available_memory_mb() > 0
     assert tmemory.get_device_memory_bytes(torch.device("cpu")) > 0
+
+
+def test_used_memory_matches_jax():
+    """The resident set of this process, read twice in a row: the same
+    megabytes from both packages, or one apart if it grew between reads."""
+    got, want = tmemory.get_used_memory_mb(), jmemory.get_used_memory_mb()
+    assert got > 0 and abs(got - want) <= 1

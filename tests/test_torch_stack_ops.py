@@ -49,6 +49,15 @@ def test_shift2d_matches_jax(sx, sy, skip_origin):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("skip_origin", [False, True])
+@pytest.mark.parametrize("sx,sy", [(0, 0), (3, -2), (-4, 5), (30, 0), (-7, -25)])
+def test_shift_mask_matches_jax(sx, sy, skip_origin):
+    want = np.asarray(jshift.shift_mask((11, 17), sx, sy, skip_origin=skip_origin))
+    got = tshift.shift_mask((11, 17), sx, sy, skip_origin=skip_origin, device="cpu")
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_shift2d_skips_the_origin():
     img = torch.arange(1, 13, dtype=torch.int32).reshape(3, 4)
     out = tshift.shift2d(img, 1, 1, fill=0, skip_origin=True)
@@ -113,3 +122,38 @@ def test_normalization_matches_jax(mode, level):
     for want, got in zip(japi.compute_normalization(jst, 0, mode),
                          tapi.compute_normalization(tst, 0, mode)):
         np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------- histogram and noise battery
+
+@pytest.mark.parametrize("norm", [255, 65535])
+def test_compute_histogram_matches_jax(norm):
+    """The GSL histogram drops the value ``norm`` (its upper edge)."""
+    data = make_frames(1, 1, 30, 40, seed=5, hi=norm + 1)[0]
+    data[0, 0, :3] = norm
+    got, want = tstats.compute_histogram(data, norm), jstats.compute_histogram(data, norm)
+    assert got.dtype == want.dtype and got[norm] == 0
+    np.testing.assert_array_equal(got, want)
+
+
+def test_img_stats_noise_matches_c_quantize():
+    """FnNoise5 against the compiled cfitsio code (``c_quantize.bin``) with
+    the JAX test's tolerance, and equal to the JAX package's."""
+    from test_c_goldens import GOLDEN_DIR, Reader
+    import os
+    r = Reader(os.path.join(GOLDEN_DIR, "c_quantize.bin"))
+    ncases = 0
+    while not r.eof():
+        nx, ny, nullcheck = r.take("H"), r.take("H"), r.take("B")
+        r.take("B")
+        img = r.take_u16s(nx * ny).reshape(ny, nx)
+        assert r.take("i") == 0
+        ngood = r.take("q")
+        vmin, vmax = r.take("H"), r.take("H")
+        _, _, _, n2, n3, n5 = r.take("dddddd")
+        got = tstats.img_stats_noise(img, bool(nullcheck))
+        assert got == jstats.img_stats_noise(img, bool(nullcheck))
+        assert got[:3] == (ngood, vmin, vmax)
+        np.testing.assert_allclose(got[3:], (n2, n3, n5), rtol=1e-12, atol=0)
+        ncases += 1
+    assert ncases > 0
