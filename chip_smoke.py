@@ -218,6 +218,25 @@ exits non-zero without printing a result:
        planted plane and pattern, the native library be built under
        siriltpu_torch/_build/ and nothing under siril-0.9_tpu/native/ change.
        Prints whether the libav film bridge builds (either answer passes).
+14. the multi-device layer (parallel/) inside a process group of world
+    size 1 on NCCL (init_distributed; NCCL cannot place two ranks on one
+    card), its meshes repeating the one card:
+    a. make_sharded_register_stack over a 4-shard frames mesh on phase 4's
+       100 x 4096 x 4096 frames: the planted shifts exactly, the sigma
+       kernel launched once a row slab, the result bit-equal to
+       stack_frames(mean, sigma (3, 3)) with the same shifts, both timed
+       by CUDA events; make_multihost_register_stack over the same mesh,
+       read_frame over a host copy of the frames (each frame read once,
+       the frames all-gathered on NCCL as int32), bit-equal to that
+       result, its sigma launches counted and its run timed; then
+       make_rows_sigma_stack over a (1, 4) (frames, rows) mesh on the
+       aligned frames cut to 4094 rows (a short last slab), bit-equal to
+       one reject_stack of the whole frame and to reject_plain;
+    b. make_sharded_sum_stack on 16 x 2048 x 2048 frames with shifts over
+       4 shards, the partials all-reduced on NCCL, bit-equal to
+       oracle.stack_sum; peaker_batch on phase 9c's 16 frames and
+       global_align_batch on 8 of phase 10's layers, over 2 shards, each
+       equal to its unsharded call.
 
 Each stack of phases 6-7 runs once with every launch count set to 0: its
 kernel must have launched, and the image and per-channel counters must be
@@ -2644,12 +2663,223 @@ def phase13(rs, rec, dev, card):
               f"output files removed", flush=True)
 
 
+#: phase 14: the sum stack's sequence (frames, height, width), the shards
+#: of each mesh on the one card, and the north star's rows cut so that the
+#: row-slab stack's last slab is short (4094 % 4 != 0)
+CONFIG14_SUM = (16, 2048, 2048)
+SHARDS14 = 4
+ROWS14 = 4094
+
+
+def phase14a(rs, rec, dev, card):
+    """The sharded register + sigma stack at the north star's shape over a
+    4-shard frames mesh on the card, against the unsharded stack_frames; the
+    same stack fed per process (make_multihost_register_stack); the
+    row-slab stack over a (1, 4) mesh with a height that 4 does not
+    divide."""
+    import torch
+    from siriltpu_torch.ops.rejection import reject_and_mean
+    from siriltpu_torch.parallel.mesh import make_mesh
+    from siriltpu_torch.parallel.multihost import make_multihost_register_stack
+    from siriltpu_torch.parallel.sharded import (make_rows_sigma_stack,
+                                                 make_sharded_register_stack)
+    from siriltpu_torch.pipelines import register_stack as prs
+    from siriltpu_torch.stacking.api import stack_frames
+    from siriltpu_torch.utils.interop import frames_from_numpy, u16_to_numpy
+
+    bench = prs.RegisterStackBench(size=SIZE, nframes=NFRAMES, seed=0, device=dev)
+    frames = bench.frames()
+    mesh = make_mesh(("frames",), devices=[dev] * SHARDS14)
+    run = make_sharded_register_stack(mesh, bench.sel, "sigma", (SIG, SIG))
+    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    out, shifts = run(frames)
+    torch.cuda.synchronize()
+    launches = dict(rs.launches)
+    rec.count(launches, "make_sharded_register_stack", "sigma")
+    if not np.array_equal(shifts, -bench.shifts):
+        fail("phase14: the sharded registration's shifts differ from the planted ones")
+    if out.shape != (SIZE, SIZE) or out.dtype != np.uint16:
+        fail(f"phase14: sharded stack {out.shape} {out.dtype}")
+    def unsharded():
+        return stack_frames(frames.reshape(NFRAMES, 1, SIZE, SIZE), device=dev,
+                            method="mean", shifts=shifts, rejection="sigma",
+                            sig=(SIG, SIG))
+
+    want = unsharded()
+    diff = int(np.abs(out.astype(np.int64) - want.data[0]).max())
+    if diff:
+        fail(f"phase14: make_sharded_register_stack against stack_frames: max|diff| {diff}")
+    print(f"phase14a make_sharded_register_stack {NFRAMES}x{SIZE}x{SIZE} over "
+          f"{SHARDS14} shards on {dev}, NCCL world size 1: shifts exact, kernel "
+          f"launches={launches}, bit-equal to stack_frames", flush=True)
+    # warm runs: the first call above also set up NCCL's communicator and
+    # cuFFT's plans
+    sharded_ms, _ = cuda_ms(lambda: run(frames), reps=1)
+    plain_ms, _ = cuda_ms(unsharded, reps=1)
+    print(f"timing [{card}] phase14a (CUDA events, one warm run each, the result "
+          f"to the host included): make_sharded_register_stack {sharded_ms:.3f} ms, "
+          f"{NFRAMES / sharded_ms * 1e3:.3f} frames/s (registration, alignment and "
+          f"stack); unsharded stack_frames with the same shifts {plain_ms:.3f} ms "
+          f"(alignment and stack)", flush=True)
+    del want
+
+    # the same stack fed per process: read_frame over the host copy, the
+    # frames all-gathered on NCCL as int32, then the sharded stack
+    host = u16_to_numpy(frames)
+    fed = []
+
+    def read_frame(i):
+        fed.append(i)
+        return host[i]
+
+    mh = make_multihost_register_stack(mesh, bench.sel, "sigma", (SIG, SIG))
+    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    got = mh(read_frame, NFRAMES, (SIZE, SIZE))
+    b.record()
+    torch.cuda.synchronize()
+    launches = dict(rs.launches)
+    rec.count(launches, "make_multihost_register_stack", "sigma")
+    if fed != list(range(NFRAMES)) or not np.array_equal(got, out):
+        fail(f"phase14: make_multihost_register_stack read frames {fed[:3]}... and "
+             f"differs from make_sharded_register_stack by "
+             f"{int(np.abs(got.astype(np.int64) - out).max())}")
+    print(f"timing [{card}] phase14a make_multihost_register_stack {NFRAMES}x{SIZE}x"
+          f"{SIZE} over {SHARDS14} shards, NCCL world size 1: {a.elapsed_time(b):.3f} ms "
+          f"(CUDA events, one run, from the host frames to the host result: reads, "
+          f"int32 all_gather, registration and stack); kernel launches={launches}; "
+          f"bit-equal to make_sharded_register_stack", flush=True)
+    del host, got
+    torch.cuda.empty_cache()
+
+    # the row-slab stack of the aligned frames, cut to ROWS14 rows
+    sx = torch.from_numpy(shifts[:, 0]).to(dev)
+    sy = torch.from_numpy(shifts[:, 1]).to(dev)
+    aligned = prs.align_frames_gather(frames, sx, sy)[:, :ROWS14]
+    del frames, bench
+    torch.cuda.empty_cache()
+    slab = make_rows_sigma_stack(make_mesh(("frames", "rows"), (1, SHARDS14),
+                                           devices=[dev] * SHARDS14))
+    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    got = slab(aligned)
+    torch.cuda.synchronize()
+    launches = dict(rs.launches)
+    rec.count(launches, "make_rows_sigma_stack", "sigma")
+    rows_ms, _ = cuda_ms(lambda: slab(aligned), reps=1)
+    flat = aligned.reshape(NFRAMES, -1).contiguous()   # a copy of the cut rows
+    whole = rs.reject_stack(flat, "sigma", SIG, SIG, with_counters=True)
+    torch.cuda.synchronize()
+    got_dev = frames_from_numpy(got.reshape(-1), dev)
+    errs = [max_abs_diff(got_dev, whole[0])]
+    for a in range(0, flat.shape[1], CHUNK):
+        pm = rs.reject_plain(flat[:, a:a + CHUNK], "sigma", SIG, SIG)[0]
+        errs.append(max_abs_diff(got_dev[a:a + CHUNK], pm))
+    torch.cuda.synchronize()
+    print(f"phase14a make_rows_sigma_stack {NFRAMES}x{ROWS14}x{SIZE} over a (1, "
+          f"{SHARDS14}) (frames, rows) mesh: kernel launches={launches}; against one "
+          f"reject_stack of the whole frame and reject_plain in 2^20-pixel chunks "
+          f"max|diff| {max(errs)}; {rows_ms:.3f} ms (CUDA events, one warm run, "
+          f"the result to the host included) [{card}]", flush=True)
+    rec.check("sigma", errs, "make_rows_sigma_stack vs one stack and the plain version")
+    del aligned, flat, whole, got_dev
+    torch.cuda.empty_cache()
+
+
+def phase14b(rs, rec, dev, card):
+    """The sharded sum stack, all-reduced, against the NumPy oracle; the
+    star finder and the batched global alignment over a 2-shard mesh against
+    their unsharded calls."""
+    import torch
+    from siriltpu_torch.ops import starfind
+    from siriltpu_torch.parallel.mesh import make_mesh
+    from siriltpu_torch.parallel.sharded import make_sharded_sum_stack
+    from siriltpu_torch.registration.global_star import global_align_batch
+    from siriltpu_torch.utils.interop import u16_to_numpy
+    from siriltpu_torch.verify import oracle
+
+    frames, shifts = make_frames(*CONFIG14_SUM, seed=14, dev=dev)
+    f, _, h, w = frames.shape
+    run = make_sharded_sum_stack(make_mesh(("frames",), devices=[dev] * SHARDS14))
+    sum_ms, (got, hi) = cuda_ms(lambda: run(frames[:, 0], shifts), reps=1)
+    host = u16_to_numpy(frames)
+    del frames
+    t0 = time.perf_counter()
+    want, hi_w = oracle.stack_sum(host, shifts)
+    oracle_s = time.perf_counter() - t0
+    diff = int(np.abs(got.astype(np.int64) - want[0]).max())
+    if diff or hi != hi_w:
+        fail(f"phase14b: make_sharded_sum_stack against oracle.stack_sum: "
+             f"max|diff| {diff}, hi {hi} against {hi_w}")
+    print(f"timing [{card}] phase14b make_sharded_sum_stack {f}x{h}x{w} over "
+          f"{SHARDS14} shards, partials all-reduced on NCCL: {sum_ms:.3f} ms (CUDA "
+          f"events, one warm run, the result to the host included), bit-equal to "
+          f"oracle.stack_sum (hi {hi}; the oracle {oracle_s:.3f} s on the host)",
+          flush=True)
+    del host
+    torch.cuda.empty_cache()
+
+    mesh2 = make_mesh(("frames",), devices=[dev] * 2)
+    frames_dev, _, _ = make_star_frames(*CONFIG_STARS, seed=5, dev=dev)
+    layers = u16_to_numpy(frames_dev)
+    del frames_dev
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plain = starfind.peaker_batch(layers, device=dev)
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded = starfind.peaker_batch(layers, device=dev, mesh=mesh2)
+    sharded_s = time.perf_counter() - t0
+    if sharded != plain:
+        fail("phase14b: peaker_batch over 2 shards differs from the unsharded call")
+    frames4, _ = make_config4_frames(BATCH4, 1, *CONFIG4[2:], seed=6, dev=dev)
+    layers4 = u16_to_numpy(frames4[:, 0])
+    del frames4
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    a_un, r_un = global_align_batch(layers4, 0, device=dev)
+    align_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    a_sh, r_sh = global_align_batch(layers4, 0, device=dev, mesh=mesh2)
+    align_sh_s = time.perf_counter() - t0
+    if r_sh.registered != BATCH4 or r_sh.failed or not np.array_equal(a_sh, a_un) \
+            or any(not np.array_equal(p, q)
+                   for p, q in zip(r_sh.homographies, r_un.homographies)):
+        fail("phase14b: global_align_batch over 2 shards differs from the "
+             "unsharded call")
+    print(f"phase14b peaker_batch {layers.shape} over 2 shards: lists equal to "
+          f"the unsharded call's ({sum(map(len, plain))} stars), {sharded_s:.3f} s "
+          f"against {plain_s:.3f} s; global_align_batch {layers4.shape} over 2 "
+          f"shards: frames and homographies equal, {align_sh_s:.3f} s against "
+          f"{align_s:.3f} s (host clock) [{card}]", flush=True)
+
+
+def phase14(rs, rec, dev, card):
+    """The multi-device layer on one card inside a process group of world
+    size 1 on NCCL (two ranks cannot share a card under NCCL)."""
+    import torch.distributed as dist
+    from siriltpu_torch.parallel.multihost import init_distributed
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        init_distributed(f"file://{os.path.join(tmp, 'rendezvous')}", 1, 0,
+                         backend="nccl")
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            fail("phase14: no NCCL group of world size 1")
+        phase14a(rs, rec, dev, card)
+        phase14b(rs, rec, dev, card)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases", default="", metavar="N,N",
-        help="run only these of the phases 3 to 13, after the device and "
+        help="run only these of the phases 3 to 14, after the device and "
              "build phases (to compare two trees in one call; phase 8 "
              "brings phases 6 and 7 with it); such a run prints its timing "
              "lines and no result")
@@ -2782,6 +3012,11 @@ def main(argv=None) -> int:
         phase13(rs, rec, dev, card)
         torch.cuda.empty_cache()
         print(f"phase13 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- 14. the multi-device layer: sharded stacks in an NCCL group
+    if wanted(14):
+        phase14(rs, rec, dev, card)
+        torch.cuda.empty_cache()
+        print(f"phase14 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} only: no result", flush=True)
         return 0

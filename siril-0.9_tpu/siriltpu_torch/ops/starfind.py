@@ -264,28 +264,47 @@ def peaker_batch(layers_bu: np.ndarray, *, device,
     Same per-star math as :func:`peaker` (the frames go through the same
     device code one after the other, as the JAX package's ``lax.map``),
     with one difference: candidates are capped at the ``nmax`` BRIGHTEST
-    wavelet peaks per frame. ``mesh`` (frames sharded over several
-    devices) waits for ``parallel/mesh.py``. With ``return_device`` the
-    result is ``(lists, layers_dev)``, the frames' copy on the device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "peaker_batch over a device mesh is not ported to siriltpu_torch "
-            "yet: it needs parallel/mesh.py")
+    wavelet peaks per frame. With ``mesh`` (a Mesh with a ``frames``
+    axis, ``parallel.mesh``) the batch is sharded so each entry's device
+    star-finds its own frames, as the reference's OpenMP-over-frames
+    registration (registration.c:276-279); ``device`` is then unused and
+    no device copy is returned. With ``return_device`` the result is
+    ``(lists, layers_dev)``, the frames' copy on the device."""
     sf = params or StarFinderParams()
     layers_bu = np.asarray(layers_bu)
     f, h, w = layers_bu.shape
-    layers_dev = frames_from_numpy(layers_bu, device)
-    result: List[List[Star]] = []
+    # the host statistics of every frame first; a frame without a good
+    # pixel (or the pad of a mesh's last shard) finds no star
+    thresholds = np.zeros(f, np.int64)
+    norms = np.zeros(f, np.int64)
+    bgs = np.zeros(f, np.float64)
+    good = np.zeros(f, bool)
     for i in range(f):
         found = _threshold(layers_bu[i], sf)
-        if found is None:
-            result.append([])
-            continue
-        threshold, norm, bg = found
-        packed, ys, xs = _find_and_fit(layers_dev[i], threshold, norm, bg,
-                                       sf.radius, (0, 0, w, h),
-                                       min(MAX_CANDIDATES, nmax))
-        result.append(_build_stars(packed, ys, xs, sf, layer_index))
+        if found is not None:
+            thresholds[i], norms[i], bgs[i] = found
+            good[i] = True
+
+    def shard(layers, thr, nrm, bg, ok):
+        out: List[List[Star]] = []
+        for i in range(layers.shape[0]):
+            if not bool(ok[i]):
+                out.append([])
+                continue
+            packed, ys, xs = _find_and_fit(layers[i], int(thr[i]), int(nrm[i]),
+                                           float(bg[i]), sf.radius, (0, 0, w, h),
+                                           min(MAX_CANDIDATES, nmax))
+            out.append(_build_stars(packed, ys, xs, sf, layer_index))
+        return out
+
+    if mesh is not None:
+        from siriltpu_torch.parallel.mesh import run_frames_sharded
+
+        result = run_frames_sharded(shard, mesh, layers_bu, thresholds, norms,
+                                    bgs, good)
+        return (result, None) if return_device else result
+    layers_dev = frames_from_numpy(layers_bu, device)
+    result = shard(layers_dev, thresholds, norms, bgs, good)
     if return_device:
         return result, layers_dev
     return result

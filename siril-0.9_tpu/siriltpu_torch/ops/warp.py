@@ -219,18 +219,30 @@ def warp_batch_dev(layers_bu, Hs_td: np.ndarray, out_shape: Tuple[int, int],
     """Frame-batched warp: (F, H, W) uint16 layers (NumPy, or a tensor)
     with per-frame 3x3 homographies (F, 3, 3) -> (F, oh, ow) uint16 on
     ``device``, one layer at a time, as the JAX package's ``lax.map``.
-    ``mesh`` (frames sharded over several devices) waits for
-    ``parallel/mesh.py``."""
+    With ``mesh`` (``parallel.mesh``) the frame axis shards over it: each
+    entry's device warps its own frames with the same per-frame body (no
+    collective, bit-identical to unsharded), and the result is gathered
+    on ``device``."""
     if mesh is not None:
-        raise NotImplementedError(
-            "warp_batch_dev over a device mesh is not ported to siriltpu_torch "
-            "yet: it needs parallel/mesh.py")
+        from siriltpu_torch.parallel.mesh import run_frames_sharded
+
+        # the inverses cross (zero-padded, as in the JAX package): a
+        # padded frame's zero homography has none
+        return run_frames_sharded(
+            lambda layers, hinvs: _warp_batch(layers, hinvs, out_shape,
+                                              interpolation),
+            mesh, layers_bu, _h_inv(Hs_td, "cpu"), out_device=device)
     if not isinstance(layers_bu, Tensor):
         layers_bu = frames_from_numpy(np.asarray(layers_bu), device)
     layers_bu = layers_bu.to(device)
-    Hinvs = _h_inv(Hs_td, device)
+    return _warp_batch(layers_bu, _h_inv(Hs_td, device), out_shape, interpolation)
+
+
+def _warp_batch(layers_bu: Tensor, Hinvs: Tensor, out_shape, interpolation) -> Tensor:
+    """Each (H, W) uint16 layer warped by its float32 inverse homography,
+    on the layers' device."""
     out = torch.empty((layers_bu.shape[0],) + tuple(out_shape), dtype=torch.int16,
-                      device=device)
+                      device=layers_bu.device)
     for i in range(layers_bu.shape[0]):
         out[i] = _warp_layer(layers_bu[i], Hinvs[i], tuple(out_shape),
                              interpolation).view(torch.int16)

@@ -6,8 +6,8 @@
 Port of ``siriltpu.pipelines.full``: the same wiring on the port's
 stages, the registration and the stack on ``device``, the debayering of a
 CFA SER by VNG or AHD too (the default bilinear, the background model and
-the autostretch run on the host, as in the JAX package). ``mesh`` waits
-for ``parallel/mesh.py``.
+the autostretch run on the host, as in the JAX package). ``mesh``
+(``parallel.mesh``) shards the global registration's frames over it.
 
 Each stage is the same code the individual CLI verbs run (convert /
 bgextract / register / stack / autostretch); this module owns the
@@ -73,10 +73,6 @@ def config5_pipeline(ser_path: str, *, device, layer: int = 1,
     from siriltpu_torch.parallel.engine import SequenceEngine
     from siriltpu_torch.stacking.api import stack_sequence
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "config5_pipeline over a device mesh is not ported to siriltpu_torch "
-            "yet: it needs parallel/mesh.py")
     if register_method not in ("global", "dft"):
         raise ValueError(f"unknown register method {register_method}")
     rep = Config5Report()
@@ -123,7 +119,7 @@ def config5_pipeline(ser_path: str, *, device, layer: int = 1,
     # 3) register
     if register_method == "global":
         from siriltpu_torch.registration.global_star import register_global_star
-        greport = register_global_star(bseq, layer, device=device)
+        greport = register_global_star(bseq, layer, device=device, mesh=mesh)
         rep.registered = greport.registered
         rep.failed = greport.failed
         rseq = ser_sequence(os.path.join(d, greport.new_seqname + ".ser"))

@@ -111,6 +111,16 @@ def align_frames_auto(frames: torch.Tensor, sx: torch.Tensor,
     return align_frames_gather(frames, sx, sy)
 
 
+def stack_rejected(flat: torch.Tensor, rejection: str, sig) -> torch.Tensor:
+    """(F, P) uint16 aligned values -> (P,) uint16 rejection mean."""
+    if rejection in KERNELS:
+        # the fused kernels: sort + rejection + mean per pixel in one pass
+        # (sigma and winsorized with the exact degenerate-pixel re-run)
+        return reject_stack(flat, rejection, float(sig[0]), float(sig[1]))
+    # no kernel (none, sigma_masked, linearfit): plain PyTorch on the device
+    return reject_and_mean(flat, rejection, sig)[0]
+
+
 def register_and_stack(frames_dev: torch.Tensor, *, sel: Tuple[int, int, int],
                        ref_index: int = 0, rejection: str = "sigma",
                        sig=(3.0, 3.0), block_rows: int = 128,
@@ -138,16 +148,7 @@ def register_and_stack(frames_dev: torch.Tensor, *, sel: Tuple[int, int, int],
         # not the full frame (registration.c:264,309)
         quality = quality_estimate_batch(_selection(frames_dev, sel))
     aligned = align_frames_auto(frames_dev, sx, sy)
-    flat = aligned.reshape(f, h * w)
-    if rejection in KERNELS:
-        # the fused kernels: sort + rejection + mean per pixel in one pass
-        # (sigma and winsorized with the exact degenerate-pixel re-run)
-        stacked = reject_stack(flat, rejection, float(sig[0]), float(sig[1]))
-    else:
-        # no kernel (none, sigma_masked, linearfit): plain PyTorch on the
-        # device
-        stacked = reject_and_mean(flat, rejection, sig)[0]
-    stacked = stacked.reshape(h, w)
+    stacked = stack_rejected(aligned.reshape(f, h * w), rejection, sig).reshape(h, w)
     if return_device:
         return stacked, (sx, sy), quality
     return (u16_to_numpy(stacked), shifts_to_numpy(sx, sy),

@@ -51,10 +51,6 @@ MAX_STARS_FITTED = 2000  # registration.c:55
 global_stats = dict.fromkeys(("read_s", "wait_s", "starfind_s", "match_s",
                               "warp_s", "copy_s", "write_s"), 0.0)
 
-_NO_MESH = ("global star registration over a device mesh is not ported to "
-            "siriltpu_torch yet: it needs parallel/mesh.py")
-
-
 @dataclass
 class GlobalRegReport:
     registered: int = 0
@@ -114,7 +110,9 @@ def register_global_star(seq, layer: int, *, device, prefix: str = "r_",
     comes from the memory free on the device
     (:func:`siriltpu_torch.core.memory.starfind_chunk_frames`), so
     sequences larger than device memory stream through; per-frame results
-    do not depend on it. ``mesh`` waits for ``parallel/mesh.py``.
+    do not depend on it. With ``mesh`` (``parallel.mesh``) both device
+    stages shard their frames over its ``frames`` axis, and the chunk is
+    rounded to a multiple of the mesh's size.
 
     When ``write_output`` the aligned frames are written as a new
     sequence (``<prefix><seqname>``, FITS files or SER matching the
@@ -131,8 +129,6 @@ def register_global_star(seq, layer: int, *, device, prefix: str = "r_",
     from siriltpu_torch.io.ser import SerFile
     from siriltpu_torch.ops.starfind import peaker_batch
 
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     clock = time.perf_counter
     stats = dict.fromkeys(global_stats, 0.0)
     report = GlobalRegReport(new_seqname=f"{prefix}{seq.seqname}")
@@ -152,7 +148,9 @@ def register_global_star(seq, layer: int, *, device, prefix: str = "r_",
     todo = [i for i in range(seq.number)
             if process_all_frames or seq.imgparam[i].incl]
     if chunk_frames is None:
-        chunk_frames = starfind_chunk_frames(out_h, out_w, device=device)
+        chunk_frames = starfind_chunk_frames(
+            out_h, out_w, device=device,
+            n_devices=mesh.size if mesh is not None else 1)
     chunks = [todo[i:i + chunk_frames]
               for i in range(0, len(todo), chunk_frames)]
 
@@ -229,7 +227,7 @@ def register_global_star(seq, layer: int, *, device, prefix: str = "r_",
             t0 = clock()
             star_lists, dev_layers = peaker_batch(layers, device=device,
                                                   params=sf_params, nmax=2048,
-                                                  return_device=True)
+                                                  mesh=mesh, return_device=True)
             t1 = clock()
             stats["starfind_s"] += t1 - t0
             # host stage: triangle match + RANSAC per frame (match.c:125)
@@ -287,11 +285,14 @@ def register_global_star(seq, layer: int, *, device, prefix: str = "r_",
                 Hmap = {j: H for j, H in zip(good, Hs)}
                 nlayers = frames[0].nlayers
                 if nlayers == 1:
-                    # the star finder's copy on the device holds the same
-                    # frames: indexing it saves a second upload
-                    idx = torch.tensor(warp_pos, device=dev_layers.device)
-                    stack = dev_layers.view(torch.int16)[idx].view(torch.uint16)
-                    dev_layers = None   # free the chunk's copy before the warp
+                    if dev_layers is None:  # sharded: the finder kept no copy
+                        stack = layers[np.asarray(warp_pos)]
+                    else:
+                        # the star finder's copy on the device holds the same
+                        # frames: indexing it saves a second upload
+                        idx = torch.tensor(warp_pos, device=dev_layers.device)
+                        stack = dev_layers.view(torch.int16)[idx].view(torch.uint16)
+                        dev_layers = None   # free the chunk's copy before the warp
                     Hsel = np.stack([Hmap[j] for j in warp_pos])
                 else:
                     stack = np.concatenate(
@@ -299,7 +300,7 @@ def register_global_star(seq, layer: int, *, device, prefix: str = "r_",
                     Hsel = np.stack([Hmap[j] for j in warp_pos
                                      for _ in range(nlayers)])
                 warped = warp_batch_dev(stack, Hsel, (out_h, out_w),
-                                        interpolation, device=device)
+                                        interpolation, device=device, mesh=mesh)
                 del stack
                 _sync(device)
                 t1 = clock()
@@ -368,8 +369,9 @@ def global_align_batch(layers_bu: np.ndarray, ref_index: int = 0, *, device,
     :func:`siriltpu_torch.ops.starfind.peaker_batch` call over all frames,
     host triangle matching + RANSAC per frame, then one
     :func:`siriltpu_torch.ops.warp.warp_batch_dev` call on the star
-    finder's copy of the frames. ``mesh`` (the frames sharded over several
-    devices) waits for ``parallel/mesh.py``.
+    finder's copy of the frames. With ``mesh`` (``parallel.mesh``) both
+    device stages shard the frames over its ``frames`` axis, each entry's
+    device processing its own frames (frame-local: no collective).
 
     Returns ``(aligned, report)``: aligned (F, H, W) uint16 frames in
     reference geometry on the host (failed frames pass through unwarped
@@ -378,15 +380,13 @@ def global_align_batch(layers_bu: np.ndarray, ref_index: int = 0, *, device,
     """
     from siriltpu_torch.ops.starfind import peaker_batch
 
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     layers_bu = np.asarray(layers_bu)
     f, h, w = layers_bu.shape
     report = GlobalRegReport()
 
     star_lists, dev_layers = peaker_batch(layers_bu, device=device,
                                           params=sf_params, nmax=nmax,
-                                          return_device=True)
+                                          mesh=mesh, return_device=True)
     refstars = star_lists[ref_index]
     if len(refstars) < AT_MATCH_MINPAIRS:
         raise ValueError(
@@ -414,7 +414,9 @@ def global_align_batch(layers_bu: np.ndarray, ref_index: int = 0, *, device,
         report.homographies.append(H)
         report.registered += 1
 
-    aligned = warp_batch_dev(dev_layers, Hs, (h, w), interpolation, device=device)
+    src = dev_layers if dev_layers is not None else layers_bu
+    aligned = warp_batch_dev(src, Hs, (h, w), interpolation, device=device,
+                             mesh=mesh)
     return u16_to_numpy(aligned), report
 
 

@@ -1,10 +1,13 @@
 """NumPy float64 oracle: literal re-derivations of the reference C code's
-per-pixel rejection, the exact path that the linearfit hybrid re-runs its
-knife-edge pixels through (``ops.rejection.linearfit_hybrid_block``,
-``stacking.api``), the shift gather of ``ops.imops.shift_image``, and
+semantics: the sum, max, min, mean-with-rejection and median stacks and
+their normalization, the per-pixel rejection (the exact path that the
+linearfit hybrid re-runs its knife-edge pixels through,
+``ops.rejection.linearfit_hybrid_block``, ``stacking.api``), the shift
+gather of ``ops.imops.shift_image``, quantize.c's noise estimate, and
 libraw's postprocess stages that ``io.rawproc`` is held to.
 
-The port's own copy of those parts of ``siriltpu.verify.oracle``.
+The port's own copy of ``siriltpu.verify.oracle``, with its arithmetic
+order.
 Everything here favors clarity/exactness over speed. Each function cites
 the C code whose behavior it freezes.
 """
@@ -29,6 +32,39 @@ def shift_gather(img: np.ndarray, shiftx: int, shifty: int,
         valid &= ~((iy == 0) & (ix == 0))
     out[..., valid] = img[..., iy[valid], ix[valid]]
     return out
+
+
+def stack_sum(frames: np.ndarray, shifts: np.ndarray) -> tuple:
+    """stack_summing (stacking.c:196-355): u64 accumulate, rescale max->65535."""
+    f, c, h, w = frames.shape
+    acc = np.zeros((c, h, w), dtype=np.uint64)
+    for i in range(f):
+        acc += shift_gather(frames[i].astype(np.uint64), shifts[i, 0],
+                            shifts[i, 1], fill=0)
+    maxim = int(acc.max())
+    if maxim > 65535:
+        out = np_round_to_word(acc.astype(np.float64) * (65535.0 / maxim))
+    else:
+        out = np_round_to_word(acc.astype(np.float64))
+    return out, min(maxim, 65535)
+
+
+def stack_max(frames: np.ndarray, shifts: np.ndarray) -> np.ndarray:
+    f, c, h, w = frames.shape
+    acc = np.zeros((c, h, w), dtype=np.uint16)
+    for i in range(f):
+        sh = shift_gather(frames[i], shifts[i, 0], shifts[i, 1], fill=0)
+        acc = np.maximum(acc, sh)
+    return acc
+
+
+def stack_min(frames: np.ndarray, shifts: np.ndarray) -> np.ndarray:
+    f, c, h, w = frames.shape
+    acc = np.full((c, h, w), 65535, dtype=np.uint16)
+    for i in range(f):
+        sh = shift_gather(frames[i], shifts[i, 0], shifts[i, 1], fill=65535)
+        acc = np.minimum(acc, sh)
+    return acc
 
 
 # --------------------------------------------------------- GSL helper stats
@@ -305,6 +341,12 @@ def c_reject_block(vec, rejection: str, sig):
     raise ValueError(f"unknown rejection {rejection}")
 
 
+def reject_pixel(stack: np.ndarray, rejection: str, sig) -> np.ndarray:
+    """Surviving values of the reference's per-pixel rejection loop; see
+    c_reject_block for the full semantics."""
+    surv, _ = c_reject_block(stack, rejection, sig)
+    return surv
+
 
 def normalize_pixel_vector(pix: np.ndarray, mode: str, scale, offset, mul) -> np.ndarray:
     """Per-pixel normalization before rejection (stacking.c:1635-1651)."""
@@ -316,6 +358,178 @@ def normalize_pixel_vector(pix: np.ndarray, mode: str, scale, offset, mul) -> np
     if mode in ("multiplicative", "multiplicative_scaling"):
         return np_round_to_word(tmp * mul)
     raise ValueError(mode)
+
+
+def stack_mean_rejection(frames: np.ndarray, shifts: np.ndarray,
+                         rejection: str = "sigma", sig=(3.0, 3.0),
+                         norm_mode: str = "none",
+                         coeffs=None) -> np.ndarray:
+    """Reference mean-with-rejection stack (stacking.c:1189-1858), literal
+    per-pixel loop. Slow — use on small images only (tests)."""
+    f, c, h, w = frames.shape
+    out = np.zeros((c, h, w), dtype=np.uint16)
+    if coeffs is None:
+        scale = np.ones(f)
+        offset = np.zeros(f)
+        mul = np.ones(f)
+    else:
+        offset, mul, scale = coeffs
+    for ch in range(c):
+        for y in range(h):
+            for x in range(w):
+                vec = np.zeros(f, dtype=np.uint16)
+                for i in range(f):
+                    sx, sy = int(shifts[i, 0]), int(shifts[i, 1])
+                    iy, ix = y - sy, x - sx
+                    if 0 <= iy < h and 0 <= ix < w:
+                        v = frames[i, ch, iy, ix]
+                        vec[i] = normalize_pixel_vector(
+                            np.asarray(v), norm_mode, scale[i], offset[i], mul[i])
+                    else:
+                        vec[i] = 0
+                surv = reject_pixel(vec, rejection, sig)
+                out[ch, y, x] = np_round_to_word(
+                    surv.astype(np.float64).sum() / surv.size)
+    return out
+
+
+def stack_median(frames: np.ndarray, norm_mode: str = "none",
+                 coeffs=None) -> np.ndarray:
+    """Reference median stack (stacking.c:362-816): per-pixel sorted median
+    over normalized values; result is the GSL ushort median (int for odd
+    counts, can be x.5 truncated to WORD by assignment for even counts —
+    the reference assigns the double median straight into WORD, i.e. C
+    truncation, stacking.c:765-767)."""
+    f, c, h, w = frames.shape
+    if coeffs is None:
+        scale = np.ones(f)
+        offset = np.zeros(f)
+        mul = np.ones(f)
+    else:
+        offset, mul, scale = coeffs
+    vec = frames.astype(np.float64) * scale[:, None, None, None]
+    if norm_mode in ("additive", "additive_scaling"):
+        vec = np_round_to_word(vec - offset[:, None, None, None]).astype(np.float64)
+    elif norm_mode in ("multiplicative", "multiplicative_scaling"):
+        vec = np_round_to_word(vec * mul[:, None, None, None]).astype(np.float64)
+    else:
+        vec = frames.astype(np.float64)
+    s = np.sort(vec, axis=0)
+    if f % 2 == 1:
+        med = s[(f - 1) // 2]
+    else:
+        med = (s[f // 2 - 1] + s[f // 2]) / 2.0
+    return med.astype(np.uint16)  # C truncation on WORD assignment
+
+
+def compute_normalization(stats_ref, stats_all, mode: str):
+    """Normalization coefficients from IKSS location/scale
+    (stacking.c:79-123). stats_* provide .location and .scale.
+    Returns (offset, mul, scale) arrays."""
+    n = len(stats_all)
+    offset = np.zeros(n)
+    mul = np.ones(n)
+    scale = np.ones(n)
+    if mode == "none":
+        return offset, mul, scale
+    loc0 = stats_ref.location
+    scale0 = stats_ref.scale
+    for i, st in enumerate(stats_all):
+        if mode in ("additive_scaling", "multiplicative_scaling"):
+            scale[i] = scale0 / st.scale if st.scale != 0 else 1.0
+        if mode in ("additive", "additive_scaling"):
+            offset[i] = scale[i] * st.location - loc0
+        elif mode in ("multiplicative", "multiplicative_scaling"):
+            mul[i] = loc0 / (st.location * 1.0) if st.location != 0 else 1.0
+            # reference: mul[i] = mul0 / mul[i] with mul[i]=location
+    return offset, mul, scale
+
+
+def fn_noise5(data, nullcheck=False):
+    """Literal transcription of quantize.c FnNoise5_ushort:260-657:
+    explicit v1..v9 pixel shifting with null-skip and end-of-row
+    continues, quick_select lower-median per row, mean-of-middles
+    across rows. differences2 zero-padded to nvals (see PARITY.md).
+    Returns (ngood, minval, maxval, noise2, noise3, noise5)."""
+    a = np.asarray(data, dtype=np.int64)
+    if a.ndim == 1:
+        a = a[None, :]
+    ny, nx = a.shape
+    if nx < 9:
+        a = a.reshape(1, -1)
+        ny, nx = a.shape
+    ngoodpix = 0
+    xmin, xmax = 65535, 0
+    if nx < 9:
+        for ii in range(nx):
+            if nullcheck and a[0, ii] == 0:
+                continue
+            xmin = min(xmin, int(a[0, ii]))
+            xmax = max(xmax, int(a[0, ii]))
+            ngoodpix += 1
+        return ngoodpix, xmin, xmax, 0.0, 0.0, 0.0
+    diffs2, diffs3, diffs5 = [], [], []
+    for jj in range(ny):
+        row = a[jj]
+        ii = 0
+        v = []
+        # read v1..v8, bailing at end of row
+        bail = False
+        for _ in range(8):
+            while ii < nx and nullcheck and row[ii] == 0:
+                ii += 1
+            if ii == nx:
+                bail = True
+                break
+            v.append(int(row[ii]))
+            ngoodpix += 1
+            xmin = min(xmin, int(row[ii]))
+            xmax = max(xmax, int(row[ii]))
+            ii += 1
+        if bail:
+            continue
+        v1, v2, v3, v4, v5, v6, v7, v8 = v
+        d2, d3, d5 = [], [], []
+        while ii < nx:
+            while ii < nx and nullcheck and row[ii] == 0:
+                ii += 1
+            if ii == nx:
+                break
+            v9 = int(row[ii])
+            xmin = min(xmin, v9)
+            xmax = max(xmax, v9)
+            if not (v5 == v6 == v7):
+                d2.append(abs(v5 - v7))
+            if not (v3 == v4 == v5 == v6 == v7):
+                d3.append(abs(2 * v5 - v3 - v7))
+                d5.append(abs(6 * v5 - 4 * v3 - 4 * v7 + v1 + v9))
+            else:
+                ngoodpix += 1
+            v1, v2, v3, v4, v5, v6, v7, v8 = v2, v3, v4, v5, v6, v7, v8, v9
+            ii += 1
+        ngoodpix += len(d3)
+        if not d3:
+            continue
+        if len(d3) == 1:
+            if len(d2) == 1:
+                diffs2.append(float(d2[0]))
+            diffs3.append(float(d3[0]))
+            diffs5.append(float(d5[0]))
+        else:
+            if len(d2) > 1:
+                pad = d2 + [0] * (len(d3) - len(d2))
+                diffs2.append(float(sorted(pad)[(len(d3) - 1) // 2]))
+            diffs3.append(float(sorted(d3)[(len(d3) - 1) // 2]))
+            diffs5.append(float(sorted(d5)[(len(d3) - 1) // 2]))
+
+    def med(d):
+        if not d:
+            return 0.0
+        s = sorted(d)
+        return (s[(len(d) - 1) // 2] + s[len(d) // 2]) / 2.0
+
+    return (ngoodpix, xmin, xmax, 1.0483579 * med(diffs2),
+            0.6052697 * med(diffs3), 0.1772048 * med(diffs5))
 
 
 # -------------------- libraw/dcraw postprocess (readraw knobs) ----------
@@ -437,6 +651,9 @@ def libraw_scale_colors(cfa: np.ndarray, pattern: str,
     return out
 
 
-__all__ = ["c_reject_block", "normalize_pixel_vector", "gsl_median_sorted",
-           "gsl_sd", "gsl_fit_linear", "shift_gather", "libraw_gamma_curve",
-           "libraw_auto_wb", "libraw_scale_colors"]
+__all__ = ["shift_gather", "stack_sum", "stack_max", "stack_min",
+           "reject_pixel", "stack_mean_rejection", "stack_median",
+           "compute_normalization", "fn_noise5", "c_reject_block",
+           "normalize_pixel_vector", "gsl_median_sorted", "gsl_sd",
+           "gsl_fit_linear", "libraw_gamma_curve", "libraw_auto_wb",
+           "libraw_scale_colors"]

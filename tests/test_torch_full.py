@@ -398,8 +398,12 @@ def test_config5_global_chain_within_bound(jx, tmp_path, cfa):
 
 
 def test_config5_refuses_what_it_does_not_run(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        tfull.config5_pipeline(str(tmp_path / "x.ser"), device="cpu", mesh=object())
+    from siriltpu_torch.parallel.mesh import make_mesh
+
+    # a mesh is taken (the run then fails on the missing file alone)
+    with pytest.raises(FileNotFoundError):
+        tfull.config5_pipeline(str(tmp_path / "x.ser"), device="cpu",
+                               mesh=make_mesh(devices=["cpu"] * 2))
     with pytest.raises(ValueError, match="register method"):
         tfull.config5_pipeline(str(tmp_path / "x.ser"), device="cpu",
                                register_method="ecc")

@@ -406,8 +406,8 @@ def test_warp_entry_points_agree(interp):
 
 def test_warp_translation_and_constants():
     """A whole-pixel translation moves the image (the JAX test's), a
-    frame flips to top-down and back, the enum is OpenCV's, and a mesh
-    waits for parallel/mesh.py."""
+    frame flips to top-down and back, the enum is OpenCV's, and a frames
+    mesh (parallel/mesh.py) gives the unsharded words."""
     rng = np.random.default_rng(66)
     img = rng.integers(100, 50000, size=(1, 48, 56)).astype(np.uint16)
     H = np.array([[1, 0, 5.0], [0, 1, 3.0], [0, 0, 1.0]])
@@ -418,8 +418,13 @@ def test_warp_translation_and_constants():
             tw.INTER_LANCZOS4) == (0, 1, 2, 3, 4)
     with pytest.raises(ValueError, match="unknown interpolation"):
         tw.warp_frame_bu(img, H, (48, 56), 7, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        tw.warp_batch_dev(img, H[None], (48, 56), device="cpu", mesh=object())
+    from siriltpu_torch.parallel.mesh import make_mesh
+    pair = np.concatenate([img, img[:, ::-1]])
+    Hs = np.stack([H, H])
+    np.testing.assert_array_equal(
+        interop.u16_to_numpy(tw.warp_batch_dev(pair, Hs, (48, 56), device="cpu",
+                                               mesh=make_mesh(devices=["cpu"] * 3))),
+        interop.u16_to_numpy(tw.warp_batch_dev(pair, Hs, (48, 56), device="cpu")))
     with pytest.raises(TypeError):
         tw.warp_frame_bu(img, H, (48, 56))      # no device
 
@@ -636,10 +641,18 @@ def test_register_global_included_frames_and_batch_match_jax(jx):
         np.testing.assert_allclose(rep.homographies[i], jrep.homographies[i], atol=1e-3)
         np.testing.assert_array_equal(rep.homographies[i], loop.homographies[i])
         np.testing.assert_array_equal(aligned[i], out[i].data[0])
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        tg.global_align_batch(layers, 0, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        tg.register_global_star(tseq, 0, device="cpu", mesh=object())
+    # over a frames mesh (parallel/mesh.py): the same bits
+    from siriltpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(devices=["cpu"] * 3)
+    sharded, srep = tg.global_align_batch(layers, 0, device="cpu", nmax=2048,
+                                          mesh=mesh)
+    np.testing.assert_array_equal(sharded, aligned)
+    out_mesh = []
+    tg.register_global_star(tseq, 0, device="cpu", write_output=False,
+                            output_frames=out_mesh, mesh=mesh)
+    for i in range(4):
+        np.testing.assert_array_equal(srep.homographies[i], rep.homographies[i])
+        np.testing.assert_array_equal(out_mesh[i].data, out[i].data)
 
 
 def test_register_global_star_rgb_in_memory():

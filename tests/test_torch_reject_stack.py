@@ -230,8 +230,9 @@ def test_wrapper_rejects_bad_input():
 
 
 def test_port_imports_without_jax_or_siriltpu():
-    """Every module of the port imports in a fresh interpreter without
-    pulling in JAX or siriltpu (and without nvcc: the build is lazy), nor
+    """Every module of the port (the multi-device layer and its worker
+    included) imports in a fresh interpreter without pulling in JAX or
+    siriltpu (and without nvcc: the build is lazy), nor
     Pillow, imageio or matplotlib, which the image formats and the plots
     import only when a call needs them."""
     code = (
@@ -254,7 +255,9 @@ def test_port_imports_without_jax_or_siriltpu():
         "          'pipelines.full', 'ops.colors', 'ops.fftops', 'ops.wave_io',\n"
         "          'pipelines.compositing', 'pipelines.plots', 'io.formats',\n"
         "          'io.conversion', 'core.config', 'core.undo', 'cli.state',\n"
-        "          'cli.commands', 'cli.main'):\n"
+        "          'cli.commands', 'cli.main', 'parallel.mesh',\n"
+        "          'parallel.sharded', 'parallel.multihost',\n"
+        "          'parallel._mh_worker', 'parallel.dryrun'):\n"
         "    assert 'siriltpu_torch.' + m in sys.modules, m\n"
         "late = [k for k in sys.modules if k.split('.')[0] in\n"
         "        ('PIL', 'imageio', 'matplotlib')]\n"

@@ -417,8 +417,10 @@ def test_peaker_batch_matches_peaker_and_jax():
     few = tsf.peaker_batch(layers[:1], device="cpu", nmax=4)[0]
     assert_same_stars(few, jsf.peaker_batch(layers[:1], nmax=4)[0])
     assert 0 < len(few) <= 4
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        tsf.peaker_batch(layers, device="cpu", mesh=object())
+    # over a frames mesh (parallel/mesh.py): the same lists, no device copy
+    from siriltpu_torch.parallel.mesh import make_mesh
+    assert tsf.peaker_batch(layers, device="cpu", nmax=256, return_device=True,
+                            mesh=make_mesh(devices=["cpu"] * 2)) == (got, None)
     with pytest.raises(TypeError):
         tsf.peaker(layers[0])  # no device
 
