@@ -256,6 +256,7 @@ The line before the last holds one JSON object describing each kernel;
 the last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -493,6 +494,39 @@ class Record:
             fail(f"{paths} did not launch the {kernel} kernel")
 
 
+def reset_counts() -> None:
+    """Set the program's counters (``utils.timing``) to 0."""
+    from siriltpu_torch.utils import timing
+    timing.reset()
+
+
+def counted(name: str):
+    """One of the program's counters, counted since ``reset_counts``."""
+    from siriltpu_torch.utils import timing
+    return timing.counters().get(name, 0)
+
+
+def kernel_launches() -> dict:
+    """Each rejection kernel's launches since ``reset_counts``."""
+    from siriltpu_torch.utils.build import KERNELS
+    return {k: counted(f"reject.launches.{k}") for k in KERNELS}
+
+
+@contextlib.contextmanager
+def stage_seconds():
+    """The program's spans on around a block: the dict it yields holds,
+    once the block has ended, each stage's host seconds by span name."""
+    from siriltpu_torch.utils import timing
+    seconds = {}
+    timing.collect()
+    timing.enable()
+    try:
+        yield seconds
+    finally:
+        timing.disable()
+        seconds.update(timing.totals(timing.collect()))
+
+
 def sort_yardstick(flat):
     """The time of torch.sort(dim=0) on (F, P) uint16 values, and the dtype
     it sorted them as."""
@@ -540,9 +574,10 @@ def yardsticks(rec, card, kernel: str, flat):
 def phase3(rs, rec, dev):
     import torch
     from siriltpu_torch.ops.rejection import masked_median
+    from siriltpu_torch.utils.build import KERNELS
     from siriltpu_torch.utils.interop import frames_from_numpy
 
-    cases = [(r, f, CASE_P) for r in rs.launches
+    cases = [(r, f, CASE_P) for r in KERNELS
              for f in sorted(set(CASE_FS) | ({7} if r == "sigma" else set())
                              | (set(BORDER_FS) if r in BORDERED else set()))]
     cases += [(r, f, CASE_P) for r, f in SCRATCH_CASES]
@@ -594,11 +629,11 @@ def phase4_5(rs, rec, dev, card):
     torch.cuda.synchronize()
     print(f"phase4 frames {tuple(frames.shape)} {frames.dtype} made on the card "
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
-    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    reset_counts()
     stacked, (sx, sy), quality = prs.register_and_stack(
         frames, sel=bench.sel, sig=(SIG, SIG), return_device=True)
     torch.cuda.synchronize()
-    launches = dict(rs.launches)
+    launches = kernel_launches()
     rec.count(launches, "register_and_stack", "sigma")
     if not np.array_equal(shifts_to_numpy(sx, sy), -bench.shifts):
         fail("recovered shifts differ from the negated generated ones")
@@ -627,7 +662,12 @@ def phase4_5(rs, rec, dev, card):
     del kmean, krejl, krejh
 
     # ---- 5. timing
-    fps = bench.run(repeats=REPS)
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        prs.register_and_stack(frames, sel=bench.sel, sig=(SIG, SIG),
+                               return_device=True)
+    torch.cuda.synchronize()
+    fps = NFRAMES * REPS / (time.perf_counter() - t0)
     sel_frames = prs._selection(frames, bench.sel)
     ms = {}
     ms["shifts"], (sx, sy) = cuda_ms(lambda: prs.compute_shifts(frames, 0, bench.sel))
@@ -734,12 +774,12 @@ def stack_config(rs, rec, dev, card, label, frames, shifts, method, rejection,
     sig = SIGS[kernel]
     kw = dict(device=dev, method=method, shifts=shifts, rejection=rejection,
               sig=sig, normalize=normalize)
-    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    reset_counts()
     t0 = time.perf_counter()
     res = stack_frames(frames, **kw)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    launches = dict(rs.launches)
+    launches = kernel_launches()
     name = f"stack_frames({method}" + (
         f", {rejection} {sig}" if method == "mean" else "") + f", normalize={normalize})"
     rec.count(launches, name, kernel)
@@ -911,53 +951,49 @@ def sequence_config(rs, rec, dev, card, label, tmp, frames, shifts, side, stacks
     else:
         sel = Rect((w - side) // 2, (h - side) // 2, side, side)
         how = "shifts exact"
-    reads, norms = Clock(), Clock()
-    normalization = api.sequence_normalization
-    api.sequence_normalization = norms.wrap(normalization)
-    try:
-        for stream in (False, True):
-            t0 = time.perf_counter()
-            seq = ser_sequence(path) if side is not None else read_seqfile(seqfile)
-            seq.read_frame = reads.wrap(seq.read_frame)
-            seq.read_frame_part = reads.wrap(seq.read_frame_part)
-            if side is not None:
-                register_shift_dft(seq, 0, sel, device=dev)
-            reg_s = time.perf_counter() - t0
-            reg_reads, _ = reads.take()
-            if not np.array_equal(seq.reg_shifts(0), shifts):
-                fail(f"{label}: recovered shifts differ from the generated ones")
-            for method, rejection, normalize, want in stacks:
-                kernel = "median" if method == "median" else rejection
-                rs.launches.update(dict.fromkeys(rs.launches, 0))
+    reads = Clock()
+    for stream in (False, True):
+        t0 = time.perf_counter()
+        seq = ser_sequence(path) if side is not None else read_seqfile(seqfile)
+        seq.read_frame = reads.wrap(seq.read_frame)
+        seq.read_frame_part = reads.wrap(seq.read_frame_part)
+        if side is not None:
+            register_shift_dft(seq, 0, sel, device=dev)
+        reg_s = time.perf_counter() - t0
+        reg_reads, _ = reads.take()
+        if not np.array_equal(seq.reg_shifts(0), shifts):
+            fail(f"{label}: recovered shifts differ from the generated ones")
+        for method, rejection, normalize, want in stacks:
+            kernel = "median" if method == "median" else rejection
+            reset_counts()
+            with stage_seconds() as stages:
                 t0 = time.perf_counter()
                 res = api.stack_sequence(seq, device=dev, method=method,
                                          rejection=rejection, sig=SIGS[kernel],
                                          normalize=normalize, stream=stream)
                 stack_s = time.perf_counter() - t0
-                name = (f"stack_sequence({method}, {rejection}, {normalize}, "
-                        f"stream={stream})")
-                rec.count(dict(rs.launches), name, kernel)
-                errs = [int(np.abs(res.data.astype(np.int64) - want.data).max()),
-                        int(np.abs(res.rejection_low - want.rejection_low).max()),
-                        int(np.abs(res.rejection_high - want.rejection_high).max())]
-                rec.check(kernel, errs, f"{label} {name} vs stack_frames")
-                read_main, read_others = reads.take()
-                norm_s, _ = norms.take()
-                waited = (f", the main thread waited {api.stream_stats['wait_s']:.3f} s "
-                          f"for the reader over {api.stream_stats['blocks']} blocks"
-                          if stream else "")
-                print(f"{label} {name}: {how}, launches={dict(rs.launches)}, "
-                      f"image+counters vs stack_frames max|diff|={max(errs)}; "
-                      f"{f / (reg_s + stack_s):.3f} frames/s from the open of the file "
-                      f"(one run, host clock): open and registration {reg_s:.3f} s (file reads "
-                      f"{reg_reads:.3f}), stack {stack_s:.3f} s (normalization "
-                      f"{norm_s:.3f}, its and the stack's file reads on the main "
-                      f"thread {read_main:.3f} and summed over other threads "
-                      f"{read_others:.3f}, the rest "
-                      f"{stack_s - norm_s - (0.0 if stream else read_main):.3f})"
-                      f"{waited} [{card}]", flush=True)
-    finally:
-        api.sequence_normalization = normalization
+            name = (f"stack_sequence({method}, {rejection}, {normalize}, "
+                    f"stream={stream})")
+            rec.count(kernel_launches(), name, kernel)
+            errs = [int(np.abs(res.data.astype(np.int64) - want.data).max()),
+                    int(np.abs(res.rejection_low - want.rejection_low).max()),
+                    int(np.abs(res.rejection_high - want.rejection_high).max())]
+            rec.check(kernel, errs, f"{label} {name} vs stack_frames")
+            read_main, read_others = reads.take()
+            norm_s = stages.get('stack.normalize', 0.0)
+            waited = (f", the main thread waited {stages.get('stack.wait', 0.0):.3f} s "
+                      f"for the reader over {counted('stack.blocks')} blocks"
+                      if stream else "")
+            print(f"{label} {name}: {how}, launches={kernel_launches()}, "
+                  f"image+counters vs stack_frames max|diff|={max(errs)}; "
+                  f"{f / (reg_s + stack_s):.3f} frames/s from the open of the file "
+                  f"(one run, host clock): open and registration {reg_s:.3f} s (file reads "
+                  f"{reg_reads:.3f}), stack {stack_s:.3f} s (normalization "
+                  f"{norm_s:.3f}, its and the stack's file reads on the main "
+                  f"thread {read_main:.3f} and summed over other threads "
+                  f"{read_others:.3f}, the rest "
+                  f"{stack_s - norm_s - (0.0 if stream else read_main):.3f})"
+                  f"{waited} [{card}]", flush=True)
     os.unlink(path)
     torch.cuda.empty_cache()
     return seq, res
@@ -996,12 +1032,14 @@ def phase9a(dev, card):
     sig = (3.0, 3.0)
     frames, shifts = make_frames(*CONFIG2, seed=2, dev=dev)
     f, c, h, w = frames.shape
-    t0 = time.perf_counter()
-    res = api.stack_frames(frames, device=dev, method="mean", shifts=shifts,
-                           rejection="linearfit", sig=sig, normalize="none")
-    torch.cuda.synchronize()
-    sec = time.perf_counter() - t0
-    stats = dict(api.linearfit_stats)
+    reset_counts()
+    with stage_seconds() as stages:
+        t0 = time.perf_counter()
+        res = api.stack_frames(frames, device=dev, method="mean", shifts=shifts,
+                               rejection="linearfit", sig=sig, normalize="none")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    knife_n = counted("linearfit.knife")
     if res.data.shape != (c, h, w) or res.data.dtype != np.uint16:
         fail(f"phase9a: result {res.data.shape} {res.data.dtype}")
 
@@ -1032,7 +1070,7 @@ def phase9a(dev, card):
     if any(errs):
         fail(f"phase9a: stack_frames(linearfit) vs the chunked fit with the "
              f"oracle on {kidx.numel()} knife-edge pixels (the stack re-ran "
-             f"{stats['knife']}): max|diff| image/rejlow/rejhigh {errs}")
+             f"{knife_n}): max|diff| image/rejlow/rejhigh {errs}")
     # the f32 fit off the knife edge against the oracle, on seeded pixels
     rng = np.random.default_rng(9)
     sample = torch.from_numpy(rng.choice(h * w, LF_SAMPLE, replace=False)).to(dev)
@@ -1051,8 +1089,9 @@ def phase9a(dev, card):
           f"vs c_reject_block on {kidx.numel()} knife-edge pixels (the f32 fit "
           f"alone differs on {flips}) and {sample.numel()} others "
           f"max|diff|={max(serrs)}; its one run {sec:.3f} s, {f / sec:.3f} "
-          f"frames/s, of which the host re-run of {stats['knife']} knife-edge "
-          f"pixels {stats['fixup_s']:.3f} s (the oracle alone on as many here "
+          f"frames/s, of which the host re-run of {knife_n} knife-edge "
+          f"pixels {stages.get('stack.linearfit_fixup', 0.0):.3f} s (the oracle "
+          f"alone on as many here "
           f"{oracle_s:.3f} s) [{card}]", flush=True)
     del mean, rl, rh, knife
     torch.cuda.empty_cache()
@@ -1133,22 +1172,22 @@ def phase9b(rs, rec, dev, card):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         path = os.path.join(tmp, "ecc.ser")
         wrote = write_ser(path, frames)
-        t0 = time.perf_counter()
-        seq = ser_sequence(path)
-        report = translation.register_ecc(seq, 0, device=dev)
-        torch.cuda.synchronize()
-        reg_s = time.perf_counter() - t0
-        stats = dict(translation.ecc_stats)
+        with stage_seconds() as stats:
+            t0 = time.perf_counter()
+            seq = ser_sequence(path)
+            report = translation.register_ecc(seq, 0, device=dev)
+            torch.cuda.synchronize()
+            reg_s = time.perf_counter() - t0
         if report.failed or len(seq.included_indices()) != f:
             fail(f"phase9b: register_ecc excluded {report.failed} frames")
         if not np.array_equal(seq.reg_shifts(0), shifts):
             bad = int((seq.reg_shifts(0) != shifts).any(axis=1).sum())
             fail(f"phase9b: {bad} recovered shifts differ from the generated ones")
-        rs.launches.update(dict.fromkeys(rs.launches, 0))
+        reset_counts()
         t0 = time.perf_counter()
         res = api.stack_sequence(seq, device=dev, stream=False, **kw)
         stack_s = time.perf_counter() - t0
-        rec.count(dict(rs.launches), "stack_sequence(mean, sigma) after register_ecc",
+        rec.count(kernel_launches(), "stack_sequence(mean, sigma) after register_ecc",
                   "sigma")
     want = api.stack_frames(frames, device=dev, shifts=shifts, **kw)
     errs = [int(np.abs(res.data.astype(np.int64) - want.data).max()),
@@ -1158,10 +1197,10 @@ def phase9b(rs, rec, dev, card):
     print(f"phase9b register_ecc {f}x{h}x{w} from a SER file ({wrote:.3f} s to "
           f"write; peak {peak}): shifts exact, no frame excluded, best frame "
           f"{report.best_frame}; {reg_s:.3f} s, {f / reg_s:.3f} frames/s (one run, "
-          f"host clock): file reads {stats['read_s']:.3f} s, host quality "
-          f"estimates {stats['quality_s']:.3f} s, the device loop with its copies "
-          f"{stats['device_s']:.3f} s; then stack_sequence(mean, sigma {sig}) "
-          f"{stack_s:.3f} s, launches={dict(rs.launches)}, image+counters vs "
+          f"host clock): file reads {stats['ecc.read']:.3f} s, host quality "
+          f"estimates {stats['ecc.quality']:.3f} s, the device loop with its copies "
+          f"{stats['ecc.device']:.3f} s; then stack_sequence(mean, sigma {sig}) "
+          f"{stack_s:.3f} s, launches={kernel_launches()}, image+counters vs "
           f"stack_frames max|diff|={max(errs)}; {f / (reg_s + stack_s):.3f} "
           f"frames/s from the open of the file [{card}]", flush=True)
 
@@ -1395,19 +1434,19 @@ def corner_error(H, planted, h: int, w: int) -> float:
 def registration_line(gstats, stats_s: float, frames: int, sec: float) -> str:
     """frames/s of one register_global_star run and where its seconds went."""
     return (f"{sec:.3f} s, {frames / sec:.3f} frames/s (one run, host clock): "
-            f"frame reads {gstats['read_s']:.3f} s (loader thread; the main "
-            f"thread waited {gstats['wait_s']:.3f}), peaker_batch "
-            f"{gstats['starfind_s']:.3f} (host statistics {stats_s:.3f}, the "
-            f"rest on the card {gstats['starfind_s'] - stats_s:.3f}), host "
-            f"matching and RANSAC {gstats['match_s']:.3f}, warp "
-            f"{gstats['warp_s']:.3f}, copy to the host {gstats['copy_s']:.3f}, "
-            f"output {gstats['write_s']:.3f}")
+            f"frame reads {gstats['global.read']:.3f} s (loader thread; the main "
+            f"thread waited {gstats['global.wait']:.3f}), peaker_batch "
+            f"{gstats['global.starfind']:.3f} (host statistics {stats_s:.3f}, the "
+            f"rest on the card {gstats['global.starfind'] - stats_s:.3f}), host "
+            f"matching and RANSAC {gstats['global.match']:.3f}, warp "
+            f"{gstats['global.warp']:.3f}, copy to the host {gstats['global.copy']:.3f}, "
+            f"output {gstats['global.write']:.3f}")
 
 
 def timed_registration(dev, seq, **kw):
     """register_global_star on ``seq``, with the seconds its peaker_batch
     calls spent in the host statistics. Returns the report, the seconds,
-    the module's global_stats and the statistics' seconds."""
+    the seconds of its stages by span name and the statistics' seconds."""
     import torch
     from siriltpu_torch.ops import starfind
     from siriltpu_torch.registration import global_star
@@ -1426,13 +1465,14 @@ def timed_registration(dev, seq, **kw):
     starfind._threshold = clock.wrap(threshold)
     starfind.peaker_batch = timed_batch
     try:
-        t0 = time.perf_counter()
-        report = global_star.register_global_star(seq, 0, device=dev, **kw)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
+        with stage_seconds() as stages:
+            t0 = time.perf_counter()
+            report = global_star.register_global_star(seq, 0, device=dev, **kw)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
     finally:
         starfind._threshold, starfind.peaker_batch = threshold, batch
-    return report, sec, dict(global_star.global_stats), inside[0]
+    return report, sec, stages, inside[0]
 
 
 def mean_fwhm(stars) -> float:
@@ -1482,13 +1522,13 @@ def phase10a(rs, rec, dev, card, host, planted):
     sig = SIGS["sigma"]
     stacked = np.stack([fr.data for fr in out])
     del out
-    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    reset_counts()
     t0 = time.perf_counter()
     res = api.stack_frames(stacked, device=dev, method="mean", rejection="sigma",
                            sig=sig, normalize="none")
     torch.cuda.synchronize()
     stack_s = time.perf_counter() - t0
-    launches = dict(rs.launches)
+    launches = kernel_launches()
     rec.count(launches, "stack_frames after register_global_star", "sigma")
     vals = frames_from_numpy(stacked, dev).view(torch.int16)
     errs = []
@@ -1549,12 +1589,12 @@ def phase10b(rs, rec, dev, card, disk):
                 not os.path.exists(os.path.join(tmp, report.new_seqname + ".seq")):
             fail("phase10b: the r_ sequence or its .seq file is missing")
         rseq = rseq[0]
-        rs.launches.update(dict.fromkeys(rs.launches, 0))
+        reset_counts()
         t0 = time.perf_counter()
         res = api.stack_sequence(rseq, device=dev, method="mean", rejection="sigma",
                                  sig=sig, stream=False)
         stack_s = time.perf_counter() - t0
-        launches = dict(rs.launches)
+        launches = kernel_launches()
         rec.count(launches, "stack_sequence of the r_ sequence", "sigma")
         mem = []
         global_star.register_global_star(
@@ -1759,18 +1799,19 @@ def phase11a(rs, rec, dev, card, tmp):
     # the registration's report, which config5_pipeline keeps to itself
     reports, put_back = kept_calls(global_star, "register_global_star")
     sig = SIGS["winsorized"]
-    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    reset_counts()
     try:
-        t0 = time.perf_counter()
-        rep = config5_pipeline(path, device=dev, layer=1, rejection="winsorized",
-                               sig=sig, debayer=True)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
+        with stage_seconds() as stages:
+            t0 = time.perf_counter()
+            rep = config5_pipeline(path, device=dev, layer=1, rejection="winsorized",
+                                   sig=sig, debayer=True)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
     finally:
         put_back()
-    launches = dict(rs.launches)
+    launches = kernel_launches()
     rec.count(launches, "config5_pipeline", "winsorized")
-    gstats = dict(global_star.global_stats)
+    gstats = {k: v for k, v in stages.items() if k.startswith("global.")}
     if rep.registered != f or rep.failed:
         fail(f"phase11a: {rep.registered} of {f} frames registered, {rep.failed} failed")
     errs = [corner_error(H, p, h, w) for H, p in zip(reports[0].homographies, planted)]
@@ -2086,9 +2127,9 @@ def phase12a(rs, rec, dev, card, tmp):
     # ---- the same lines in this process, each timed
     lines = [l for l in session.splitlines() if l.strip()]
     state = make_state(tmp, device=dev)
-    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    reset_counts()
     secs = run_lines(state, lines, "phase12a", card)
-    launches = dict(rs.launches)
+    launches = kernel_launches()
     rec.count(launches, "the scripted session", "median")
     if launches["sigma"] < 1:
         fail("the scripted session did not launch the sigma kernel")
@@ -2350,24 +2391,20 @@ def phase13a(rs, rec, dev, card, tmp):
     lines = [line for line in script.splitlines() if line.strip()]
     state = make_state(tmp, device=dev)
     stacks, put_stack = kept_calls(api, "stack_sequence")
-    norm = Clock()
-    normalization, api.sequence_normalization = (api.sequence_normalization,
-                                                 norm.wrap(api.sequence_normalization))
-    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    reset_counts()
     try:
-        secs = run_lines(state, lines, "phase13a", card)
+        with stage_seconds() as ecc:
+            secs = run_lines(state, lines, "phase13a", card)
     finally:
         put_stack()
-        api.sequence_normalization = normalization
-    launches = dict(rs.launches)
+    launches = kernel_launches()
     rec.count(launches, "the film's script", "winsorized")
-    ecc = dict(translation.ecc_stats)
     to_stack = sum(secs[:3])
     print(f"phase13a the film's script in this process: launches={launches}; {f / to_stack:.3f} "
           f"film frames/s from 'seqload' to the written stack ({to_stack:.3f} s, one run, "
-          f"host clock): ECC file reads {ecc['read_s']:.3f} s, host quality "
-          f"{ecc['quality_s']:.3f} s, device loop {ecc['device_s']:.3f} s, normalization "
-          f"{norm.main:.3f} s; by command "
+          f"host clock): ECC file reads {ecc['ecc.read']:.3f} s, host quality "
+          f"{ecc['ecc.quality']:.3f} s, device loop {ecc['ecc.device']:.3f} s, normalization "
+          f"{ecc.get('stack.normalize', 0.0):.3f} s; by command "
           + ", ".join(f"{l.split()[0]} {s:.3f}" for l, s in zip(lines, secs))
           + f" [{card}]", flush=True)
     for name, want in outs.items():
@@ -2496,14 +2533,15 @@ def phase13b(rs, rec, dev, card, tmp):
     demosaic.ahd_device = counted
     reports, put_reg = kept_calls(global_star, "register_global_star")
     stacks, put_stack = kept_calls(api, "stack_sequence")
-    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    reset_counts()
     try:
-        secs = run_lines(state, lines, "phase13b", card)
+        with stage_seconds() as stages:
+            secs = run_lines(state, lines, "phase13b", card)
     finally:
         demosaic.ahd_device = ahd
         put_reg()
         put_stack()
-    launches = dict(rs.launches)
+    launches = kernel_launches()
     rec.count(launches, "the raw night's script", "sigma")
     if on_card != [str(torch.device(dev))] * f:
         fail(f"phase13b: convert's AHD ran {on_card}, not once a light on {dev}")
@@ -2512,7 +2550,7 @@ def phase13b(rs, rec, dev, card, tmp):
           f"convert {secs[0] / f:.3f} s a light (decode, AHD on the card, FITS written), "
           f"{f / to_stack:.4f} frames/s from 'convert' to the written stack "
           f"({to_stack:.3f} s, one run, host clock); registration "
-          f"{({k: round(v, 3) for k, v in global_star.global_stats.items()})}; by command "
+          f"{({k: round(v, 3) for k, v in stages.items() if k.startswith('global.')})}; by command "
           + ", ".join(f"{l.split()[0]} {s:.3f}" for l, s in zip(lines, secs))
           + f" [{card}]", flush=True)
 
@@ -2691,10 +2729,10 @@ def phase14a(rs, rec, dev, card):
     frames = bench.frames()
     mesh = make_mesh(("frames",), devices=[dev] * SHARDS14)
     run = make_sharded_register_stack(mesh, bench.sel, "sigma", (SIG, SIG))
-    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    reset_counts()
     out, shifts = run(frames)
     torch.cuda.synchronize()
-    launches = dict(rs.launches)
+    launches = kernel_launches()
     rec.count(launches, "make_sharded_register_stack", "sigma")
     if not np.array_equal(shifts, -bench.shifts):
         fail("phase14: the sharded registration's shifts differ from the planted ones")
@@ -2733,13 +2771,13 @@ def phase14a(rs, rec, dev, card):
         return host[i]
 
     mh = make_multihost_register_stack(mesh, bench.sel, "sigma", (SIG, SIG))
-    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    reset_counts()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     got = mh(read_frame, NFRAMES, (SIZE, SIZE))
     b.record()
     torch.cuda.synchronize()
-    launches = dict(rs.launches)
+    launches = kernel_launches()
     rec.count(launches, "make_multihost_register_stack", "sigma")
     if fed != list(range(NFRAMES)) or not np.array_equal(got, out):
         fail(f"phase14: make_multihost_register_stack read frames {fed[:3]}... and "
@@ -2761,10 +2799,10 @@ def phase14a(rs, rec, dev, card):
     torch.cuda.empty_cache()
     slab = make_rows_sigma_stack(make_mesh(("frames", "rows"), (1, SHARDS14),
                                            devices=[dev] * SHARDS14))
-    rs.launches.update(dict.fromkeys(rs.launches, 0))
+    reset_counts()
     got = slab(aligned)
     torch.cuda.synchronize()
-    launches = dict(rs.launches)
+    launches = kernel_launches()
     rec.count(launches, "make_rows_sigma_stack", "sigma")
     rows_ms, _ = cuda_ms(lambda: slab(aligned), reps=1)
     flat = aligned.reshape(NFRAMES, -1).contiguous()   # a copy of the cut rows
@@ -2944,7 +2982,7 @@ def main(argv=None) -> int:
           flush=True)
     if plans["winsorized"].warps < MIN_WARPS_F1000:
         fail(f"winsorized keeps {plans['winsorized'].warps} warps per SM at F = 1000")
-    rec = Record(rs.launches)
+    rec = Record(build.KERNELS)
     # ---- 3. every kernel vs its plain version
     if wanted(3):
         phase3(rs, rec, dev)
@@ -3028,7 +3066,7 @@ def main(argv=None) -> int:
         "max_abs_err": rec.err[k], "ms": rec.ms[k][0], "plain_ms": rec.ms[k][1],
         "bound_ms": rec.bound[k], "bound_by": "bytes", "bound": "hbm",
         "library_ms": rec.library[k]}
-        for k in rs.launches]}
+        for k in build.KERNELS]}
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

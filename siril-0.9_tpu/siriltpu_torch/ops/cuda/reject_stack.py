@@ -8,7 +8,9 @@ exact re-run of the pixels the window form flags as degenerate, which the
 JAX wrapper does after its kernel. Here the kernels do it themselves: the
 warp that owns a degenerate pixel runs the reference's masked loop on the
 sorted column it holds (``exact_masked`` in ``csrc/reject_common.cuh``).
-So a CUDA stack is one launch per span of pixels and no host sync.
+So a CUDA stack is one launch per span of pixels and no host sync. The
+launches are counted (``utils.timing``, ``reject.launches.<kernel>``), and
+with tracing on a stack is a ``stack.reject`` span.
 
 How the kernels own pixels (the C plans, ``csrc/reject_<name>.cu``):
 median gives each pixel a thread and its column a stride of shared
@@ -37,10 +39,7 @@ from siriltpu_torch.ops.rejection import (_mean_of_survivors, masked_median,
                                           reject_sigmedian, reject_winsorized,
                                           reject_winsorized_window)
 from siriltpu_torch.utils.build import KERNELS
-
-#: kernel launches per kernel since the counts were last set to 0 (read
-#: by chip_smoke.py to show that a path went through its kernels)
-launches = dict.fromkeys(KERNELS, 0)
+from siriltpu_torch.utils.timing import count, span
 
 #: shared memory a block may use, bytes; None: all that sm_90 allows
 #: (227 KB). A smaller limit sends more F to the scratch path.
@@ -143,6 +142,7 @@ def reject_cuda(vals: torch.Tensor, rejection: str, siglow: float,
         scratch = (torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
                    if plan.scratch else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        launched = 0
         for a in range(0, p, plan.chunk):
             b = min(a + plan.chunk, p)
             rc = fn(vals.data_ptr() + 2 * a, p,
@@ -154,7 +154,8 @@ def reject_cuda(vals: torch.Tensor, rejection: str, siglow: float,
             if rc != 0:
                 raise RuntimeError(f"reject_{rejection}_u16 launch failed: "
                                    f"cudaError_t {rc}")
-            launches[rejection] += 1
+            launched += 1
+    count(f"reject.launches.{rejection}", launched)
     return mean.view(torch.uint16), degen, rejl, rejh
 
 
@@ -178,14 +179,16 @@ def reject_stack(vals: torch.Tensor, rejection: str, siglow: float,
     such stacks to its HBM path instead): the result is the same, only
     slower. The CUDA route makes no host sync."""
     siglow, sighigh = float(siglow), float(sighigh)
-    if vals.device.type == "cuda":
-        mean, _, rejl, rejh = reject_cuda(vals, rejection, siglow, sighigh)
-    elif vals.device.type == "cpu":
-        mean, _, rejl, rejh = reject_plain(vals, rejection, siglow, sighigh)
-    else:
-        raise ValueError(f"no rejection kernel for device {vals.device}")
+    with span("stack.reject", device=vals.device, shape=tuple(vals.shape),
+              rejection=rejection):
+        if vals.device.type == "cuda":
+            mean, _, rejl, rejh = reject_cuda(vals, rejection, siglow, sighigh)
+        elif vals.device.type == "cpu":
+            mean, _, rejl, rejh = reject_plain(vals, rejection, siglow, sighigh)
+        else:
+            raise ValueError(f"no rejection kernel for device {vals.device}")
     return (mean, rejl, rejh) if with_counters else mean
 
 
 __all__ = ["reject_stack", "reject_cuda", "reject_plain", "launch_plan",
-           "Plan", "launches"]
+           "Plan"]

@@ -11,11 +11,15 @@ device-resident (F, H, W) uint16 frame batch:
 3. ``align_frames_auto``: integer zero-fill shift of every frame;
 4. ``reject_stack``: the rejection's CUDA kernel (sort + clip + mean per
    pixel) plus the exact re-run of its degenerate pixels.
+
+With tracing on (``utils.timing``) a call is a ``register_and_stack``
+span over the stages' spans ``register.shifts``, ``register.quality``,
+``align.shift_read``, ``align.copy``, ``stack.reject`` and
+``result.to_host``, whatever functions implement them.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Tuple
 
 import numpy as np
@@ -28,6 +32,7 @@ from siriltpu_torch.ops.quality import quality_estimate_batch
 from siriltpu_torch.utils.build import KERNELS
 from siriltpu_torch.utils.interop import (i32_to_u16, shifts_to_numpy,
                                           u16_to_numpy)
+from siriltpu_torch.utils.timing import span
 
 ALIGN_MARGIN = 64  # shift bound of the slice-form align
 
@@ -61,14 +66,15 @@ def align_frames_gather(frames: torch.Tensor, sx: torch.Tensor,
     gather with clipped per-frame row and column indices; any shift."""
     f, h, w = frames.shape
     dev = frames.device
-    rows = torch.arange(h, device=dev)[None, :] - sy.to(torch.int64)[:, None]
-    cols = torch.arange(w, device=dev)[None, :] - sx.to(torch.int64)[:, None]
-    mask = (((rows >= 0) & (rows < h))[:, :, None]
-            & ((cols >= 0) & (cols < w))[:, None, :])
-    g = frames.view(torch.int16)[
-        torch.arange(f, device=dev)[:, None, None],
-        rows.clamp(0, h - 1)[:, :, None], cols.clamp(0, w - 1)[:, None, :]]
-    return torch.where(mask, g, 0).view(torch.uint16)
+    with span("align.copy", device=dev, form="gather"):
+        rows = torch.arange(h, device=dev)[None, :] - sy.to(torch.int64)[:, None]
+        cols = torch.arange(w, device=dev)[None, :] - sx.to(torch.int64)[:, None]
+        mask = (((rows >= 0) & (rows < h))[:, :, None]
+                & ((cols >= 0) & (cols < w))[:, None, :])
+        g = frames.view(torch.int16)[
+            torch.arange(f, device=dev)[:, None, None],
+            rows.clamp(0, h - 1)[:, :, None], cols.clamp(0, w - 1)[:, None, :]]
+        return torch.where(mask, g, 0).view(torch.uint16)
 
 
 def _shift_into(out: torch.Tensor, src: torch.Tensor, sx: int, sy: int):
@@ -82,11 +88,21 @@ def _shift_into(out: torch.Tensor, src: torch.Tensor, sx: int, sy: int):
 
 
 def _align_slice(frames: torch.Tensor, xs, ys) -> torch.Tensor:
-    out = torch.zeros_like(frames.view(torch.int16))
-    src = frames.view(torch.int16)
-    for i, (x, y) in enumerate(zip(xs, ys)):
-        _shift_into(out[i], src[i], x, y)
+    with span("align.copy", device=frames.device, form="slice"):
+        out = torch.zeros_like(frames.view(torch.int16))
+        src = frames.view(torch.int16)
+        for i, (x, y) in enumerate(zip(xs, ys)):
+            _shift_into(out[i], src[i], x, y)
     return out.view(torch.uint16)
+
+
+def _read_shifts(sx: torch.Tensor, sy: torch.Tensor):
+    """The shifts as two lists on the host (a wait for the card there),
+    and the largest |shift|."""
+    with span("align.shift_read"):
+        xs, ys = sx.tolist(), sy.tolist()
+        reach = max((max(abs(x), abs(y)) for x, y in zip(xs, ys)), default=0)
+    return xs, ys, reach
 
 
 def align_frames_slice(frames: torch.Tensor, sx: torch.Tensor,
@@ -95,7 +111,8 @@ def align_frames_slice(frames: torch.Tensor, sx: torch.Tensor,
     rectangle copy per frame into a zeroed output: a straight copy
     instead of a gather. Exact for any shift; it costs one host sync to
     read the shifts."""
-    return _align_slice(frames, sx.tolist(), sy.tolist())
+    xs, ys, _ = _read_shifts(sx, sy)
+    return _align_slice(frames, xs, ys)
 
 
 def align_frames_auto(frames: torch.Tensor, sx: torch.Tensor,
@@ -105,8 +122,8 @@ def align_frames_auto(frames: torch.Tensor, sx: torch.Tensor,
     frame that has drifted that far is mostly zero fill)."""
     # host sync: the choice needs max |shift| on the host (JAX decides on
     # the device with lax.cond); the slice form reuses the shifts read here
-    xs, ys = sx.tolist(), sy.tolist()
-    if max(max(abs(x), abs(y)) for x, y in zip(xs, ys)) <= margin:
+    xs, ys, reach = _read_shifts(sx, sy)
+    if reach <= margin:
         return _align_slice(frames, xs, ys)
     return align_frames_gather(frames, sx, sy)
 
@@ -118,7 +135,9 @@ def stack_rejected(flat: torch.Tensor, rejection: str, sig) -> torch.Tensor:
         # (sigma and winsorized with the exact degenerate-pixel re-run)
         return reject_stack(flat, rejection, float(sig[0]), float(sig[1]))
     # no kernel (none, sigma_masked, linearfit): plain PyTorch on the device
-    return reject_and_mean(flat, rejection, sig)[0]
+    with span("stack.reject", device=flat.device, shape=tuple(flat.shape),
+              rejection=rejection):
+        return reject_and_mean(flat, rejection, sig)[0]
 
 
 def register_and_stack(frames_dev: torch.Tensor, *, sel: Tuple[int, int, int],
@@ -141,18 +160,34 @@ def register_and_stack(frames_dev: torch.Tensor, *, sel: Tuple[int, int, int],
     the exact re-run of ``stacking.api``, as in ``siriltpu``).
     """
     f, h, w = frames_dev.shape
-    sx, sy = compute_shifts(frames_dev, ref_index, sel)
-    quality = None
-    if with_quality:
-        # the reference estimates quality on the registration SELECTION,
-        # not the full frame (registration.c:264,309)
-        quality = quality_estimate_batch(_selection(frames_dev, sel))
-    aligned = align_frames_auto(frames_dev, sx, sy)
-    stacked = stack_rejected(aligned.reshape(f, h * w), rejection, sig).reshape(h, w)
-    if return_device:
-        return stacked, (sx, sy), quality
-    return (u16_to_numpy(stacked), shifts_to_numpy(sx, sy),
-            None if quality is None else quality.cpu().numpy())
+    dev = frames_dev.device
+    with span("register_and_stack", F=f, H=h, W=w, rejection=rejection):
+        with span("register.shifts", device=dev):
+            sx, sy = compute_shifts(frames_dev, ref_index, sel)
+        quality = None
+        if with_quality:
+            # the reference estimates quality on the registration SELECTION,
+            # not the full frame (registration.c:264,309)
+            with span("register.quality", device=dev):
+                quality = quality_estimate_batch(_selection(frames_dev, sel))
+        aligned = align_frames_auto(frames_dev, sx, sy)
+        stacked = stack_rejected(aligned.reshape(f, h * w), rejection,
+                                 sig).reshape(h, w)
+        if return_device:
+            return stacked, (sx, sy), quality
+        return _to_host(stacked, sx, sy, quality)
+
+
+def _to_host(stacked: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
+             quality):
+    """The stack, the (F, 2) shifts and the quality as NumPy arrays: one
+    copy each of the stack, sx, sy and the quality, each a wait for the
+    card there."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (stacked, sx, sy, quality) if t is not None)
+    with span("result.to_host", device=stacked.device, bytes=nbytes):
+        return (u16_to_numpy(stacked), shifts_to_numpy(sx, sy),
+                None if quality is None else quality.cpu().numpy())
 
 
 def _make_bench_frames(shifts: np.ndarray, nframes: int, size: int,
@@ -185,16 +220,15 @@ def _make_bench_frames(shifts: np.ndarray, nframes: int, size: int,
 
 
 class RegisterStackBench:
-    """Benchmark harness for the north-star metric. All data stays on
-    ``device``; the timed section is the full register+stack pipeline."""
+    """The synthetic sequence of the north-star workload: ``nframes``
+    frames of ``size`` x ``size`` drifting by ``shifts`` (frame 0 fixed),
+    made on ``device`` from ``seed``, and the central registration
+    selection ``sel`` (at most 512 pixels a side)."""
 
-    def __init__(self, size: int = 4096, nframes: int = 100,
-                 rejection: str = "sigma", with_quality: bool = True,
-                 seed: int = 0, device="cuda"):
+    def __init__(self, size: int = 4096, nframes: int = 100, seed: int = 0,
+                 device="cuda"):
         self.size = size
         self.nframes = nframes
-        self.rejection = rejection
-        self.with_quality = with_quality
         self.seed = seed
         self.device = torch.device(device)
         rng = np.random.default_rng(seed)
@@ -210,47 +244,6 @@ class RegisterStackBench:
             self._master = _make_bench_frames(self.shifts, self.nframes,
                                               self.size, self.seed, self.device)
         return self._master
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def _once(self):
-        return register_and_stack(
-            self.frames(), sel=self.sel, rejection=self.rejection,
-            with_quality=self.with_quality, return_device=True)
-
-    def run(self, repeats: int = 1, with_drain_stats: bool = False):
-        """Frames per second of the register+stack pipeline, averaged over
-        ``repeats`` runs after one warm-up run that also checks that the
-        recovered shifts are the negated generated ones.
-
-        With ``with_drain_stats`` also returns the time and rate of copying
-        the last stacked image to the host, and the frames per second with
-        that copy included."""
-        stacked, (sx, sy), _ = self._once()
-        shifts = shifts_to_numpy(sx, sy)
-        if not np.array_equal(shifts, -self.shifts):
-            raise RuntimeError("registration failed: recovered shifts differ "
-                               "from the generated ones")
-        reps = max(repeats, 1)
-        self._sync()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            stacked, _, _ = self._once()
-        self._sync()
-        dt = (time.perf_counter() - t0) / reps
-        fps = self.nframes / dt
-        if not with_drain_stats:
-            return fps
-        td = time.perf_counter()
-        result = u16_to_numpy(stacked)
-        drain_s = time.perf_counter() - td
-        if result.shape != (self.size, self.size):
-            raise RuntimeError(f"stacked image has shape {result.shape}")
-        return fps, {"drain_s": drain_s,
-                     "drain_mbps": result.nbytes / drain_s / 1e6,
-                     "fps_incl_drain": self.nframes / (dt + drain_s)}
 
 
 __all__ = ["register_and_stack", "compute_shifts", "align_frames_gather",

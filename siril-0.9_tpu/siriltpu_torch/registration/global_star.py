@@ -26,7 +26,6 @@ sequence (skip + new_total decrement, :683-690).
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -40,16 +39,9 @@ from siriltpu_torch.registration.matching import (AT_MATCH_MINPAIRS,
                                                   new_star_match)
 from siriltpu_torch.registration.ransac import find_homography
 from siriltpu_torch.utils.interop import u16_to_numpy
+from siriltpu_torch.utils.timing import current, span
 
 MAX_STARS_FITTED = 2000  # registration.c:55
-
-#: of the last ``register_global_star``, in seconds: frame reads in the
-#: loader thread, the main thread's wait for it, ``peaker_batch`` (host
-#: statistics included), host matching with RANSAC, the warp on the
-#: device, the copy of the warped frames to the host, and the output
-#: written (read by chip_smoke.py)
-global_stats = dict.fromkeys(("read_s", "wait_s", "starfind_s", "match_s",
-                              "warp_s", "copy_s", "write_s"), 0.0)
 
 @dataclass
 class GlobalRegReport:
@@ -118,6 +110,13 @@ def register_global_star(seq, layer: int, *, device, prefix: str = "r_",
     sequence (``<prefix><seqname>``, FITS files or SER matching the
     input type); ``output_frames`` (a list) collects aligned Frames
     in memory instead or as well.
+
+    With tracing on, its stages are the spans ``global.read`` (frame reads
+    in the loader thread), ``global.wait`` (the main thread's wait for
+    it), ``global.starfind`` (``peaker_batch``, host statistics included),
+    ``global.match`` (host matching with RANSAC), ``global.warp`` (the
+    warp on the device), ``global.copy`` (the warped frames to the host)
+    and ``global.write`` (the output written).
     """
     import queue
     import threading
@@ -129,8 +128,7 @@ def register_global_star(seq, layer: int, *, device, prefix: str = "r_",
     from siriltpu_torch.io.ser import SerFile
     from siriltpu_torch.ops.starfind import peaker_batch
 
-    clock = time.perf_counter
-    stats = dict.fromkeys(global_stats, 0.0)
+    caller = current()
     report = GlobalRegReport(new_seqname=f"{prefix}{seq.seqname}")
     reg = seq.ensure_regparam(layer)
     ref_image = seq.reference_image if seq.reference_image >= 0 else 0
@@ -176,10 +174,9 @@ def register_global_star(seq, layer: int, *, device, prefix: str = "r_",
             for ck in chunks:
                 if abort.is_set():
                     return
-                t0 = clock()
-                frames = [seq.read_frame(i) for i in ck]
-                layers = np.stack([f.layer(layer) for f in frames])
-                stats["read_s"] += clock() - t0
+                with span("global.read", parent=caller):
+                    frames = [seq.read_frame(i) for i in ck]
+                    layers = np.stack([f.layer(layer) for f in frames])
                 if not _put((ck, frames, layers)):
                     return
             _put(None)
@@ -216,53 +213,50 @@ def register_global_star(seq, layer: int, *, device, prefix: str = "r_",
 
     def _consume():
         while True:
-            t0 = clock()
-            item = q.get()
-            stats["wait_s"] += clock() - t0
+            with span("global.wait"):
+                item = q.get()
             if item is None:
                 break
             if isinstance(item, BaseException):
                 raise item
             ck, frames, layers = item
-            t0 = clock()
-            star_lists, dev_layers = peaker_batch(layers, device=device,
-                                                  params=sf_params, nmax=2048,
-                                                  mesh=mesh, return_device=True)
-            t1 = clock()
-            stats["starfind_s"] += t1 - t0
-            # host stage: triangle match + RANSAC per frame (match.c:125)
-            good: List[int] = []         # positions within the chunk
-            Hs: List[np.ndarray] = []
-            fwhms: List[float] = []
-            for j, fidx in enumerate(ck):
-                if fidx == ref_image:
-                    report.homographies.append(np.eye(3))
-                    report.fwhm.append(fx_ref)
+            with span("global.starfind"):
+                star_lists, dev_layers = peaker_batch(
+                    layers, device=device, params=sf_params, nmax=2048,
+                    mesh=mesh, return_device=True)
+            with span("global.match"):
+                # host stage: triangle match + RANSAC per frame (match.c:125)
+                good: List[int] = []         # positions within the chunk
+                Hs: List[np.ndarray] = []
+                fwhms: List[float] = []
+                for j, fidx in enumerate(ck):
+                    if fidx == ref_image:
+                        report.homographies.append(np.eye(3))
+                        report.fwhm.append(fx_ref)
+                        good.append(j)
+                        Hs.append(np.eye(3))
+                        fwhms.append(fx_ref)
+                        report.registered += 1
+                        continue
+                    stars = star_lists[j]
+                    if len(stars) < AT_MATCH_MINPAIRS:
+                        report.failed += 1
+                        report.homographies.append(None)
+                        continue
+                    nbpoints = min(len(stars), fitted_stars)
+                    H = compute_homography(stars, refstars, nbpoints)
+                    if H is None:
+                        report.failed += 1
+                        report.homographies.append(None)
+                        continue
+                    fx, fy = _fwhm_average(stars, nbpoints)
+                    reg[fidx].fwhm = fx
+                    report.homographies.append(H)
+                    report.fwhm.append(fx)
                     good.append(j)
-                    Hs.append(np.eye(3))
-                    fwhms.append(fx_ref)
+                    Hs.append(H)
+                    fwhms.append(fx)
                     report.registered += 1
-                    continue
-                stars = star_lists[j]
-                if len(stars) < AT_MATCH_MINPAIRS:
-                    report.failed += 1
-                    report.homographies.append(None)
-                    continue
-                nbpoints = min(len(stars), fitted_stars)
-                H = compute_homography(stars, refstars, nbpoints)
-                if H is None:
-                    report.failed += 1
-                    report.homographies.append(None)
-                    continue
-                fx, fy = _fwhm_average(stars, nbpoints)
-                reg[fidx].fwhm = fx
-                report.homographies.append(H)
-                report.fwhm.append(fx)
-                good.append(j)
-                Hs.append(H)
-                fwhms.append(fx)
-                report.registered += 1
-            stats["match_s"] += clock() - t1
 
             if translation_only:
                 for j, H, fw in zip(good, Hs, fwhms):
@@ -281,50 +275,48 @@ def register_global_star(seq, layer: int, *, device, prefix: str = "r_",
             warp_pos = [j for j in good if ck[j] != ref_image]
             warped_np = None
             if warp_pos:
-                t0 = clock()
-                Hmap = {j: H for j, H in zip(good, Hs)}
-                nlayers = frames[0].nlayers
-                if nlayers == 1:
-                    if dev_layers is None:  # sharded: the finder kept no copy
-                        stack = layers[np.asarray(warp_pos)]
+                with span("global.warp"):
+                    Hmap = {j: H for j, H in zip(good, Hs)}
+                    nlayers = frames[0].nlayers
+                    if nlayers == 1:
+                        if dev_layers is None:  # sharded: the finder kept no copy
+                            stack = layers[np.asarray(warp_pos)]
+                        else:
+                            # the star finder's copy on the device holds the
+                            # same frames: indexing it saves a second upload
+                            idx = torch.tensor(warp_pos, device=dev_layers.device)
+                            stack = dev_layers.view(torch.int16)[idx].view(torch.uint16)
+                            dev_layers = None   # free the chunk's copy before the warp
+                        Hsel = np.stack([Hmap[j] for j in warp_pos])
                     else:
-                        # the star finder's copy on the device holds the same
-                        # frames: indexing it saves a second upload
-                        idx = torch.tensor(warp_pos, device=dev_layers.device)
-                        stack = dev_layers.view(torch.int16)[idx].view(torch.uint16)
-                        dev_layers = None   # free the chunk's copy before the warp
-                    Hsel = np.stack([Hmap[j] for j in warp_pos])
-                else:
-                    stack = np.concatenate(
-                        [frames[j].data for j in warp_pos])
-                    Hsel = np.stack([Hmap[j] for j in warp_pos
-                                     for _ in range(nlayers)])
-                warped = warp_batch_dev(stack, Hsel, (out_h, out_w),
-                                        interpolation, device=device, mesh=mesh)
-                del stack
-                _sync(device)
-                t1 = clock()
-                warped_np = u16_to_numpy(warped)
+                        stack = np.concatenate(
+                            [frames[j].data for j in warp_pos])
+                        Hsel = np.stack([Hmap[j] for j in warp_pos
+                                         for _ in range(nlayers)])
+                    warped = warp_batch_dev(stack, Hsel, (out_h, out_w),
+                                            interpolation, device=device,
+                                            mesh=mesh)
+                    del stack
+                    _sync(device)
+                with span("global.copy"):
+                    warped_np = u16_to_numpy(warped)
                 del warped
-                stats["warp_s"] += t1 - t0
-                stats["copy_s"] += clock() - t1
                 if nlayers > 1:
                     warped_np = warped_np.reshape(
                         len(warp_pos), nlayers, out_h, out_w)
 
-            t0 = clock()
-            wi = 0
-            for j, H, fw in zip(good, Hs, fwhms):
-                fidx = ck[j]
-                if fidx == ref_image:
-                    _emit(frames[j], fidx, fw)
-                    continue
-                arr = warped_np[wi]
-                wi += 1
-                if arr.ndim == 2:
-                    arr = arr[None]
-                _emit(Frame(arr, dict(frames[j].meta)), fidx, fw)
-            stats["write_s"] += clock() - t0
+            with span("global.write"):
+                wi = 0
+                for j, H, fw in zip(good, Hs, fwhms):
+                    fidx = ck[j]
+                    if fidx == ref_image:
+                        _emit(frames[j], fidx, fw)
+                        continue
+                    arr = warped_np[wi]
+                    wi += 1
+                    if arr.ndim == 2:
+                        arr = arr[None]
+                    _emit(Frame(arr, dict(frames[j].meta)), fidx, fw)
 
     try:
         _consume()
@@ -355,7 +347,6 @@ def register_global_star(seq, layer: int, *, device, prefix: str = "r_",
             imgparam=new_imgparam, regparam={layer: new_regparam})
         write_seqfile(new_seq, seq.seq_dir)
     seq.needs_saving = True
-    global_stats.update(stats)
     return report
 
 
@@ -421,5 +412,4 @@ def global_align_batch(layers_bu: np.ndarray, ref_index: int = 0, *, device,
 
 
 __all__ = ["register_global_star", "global_align_batch",
-           "compute_homography", "GlobalRegReport", "MAX_STARS_FITTED",
-           "global_stats"]
+           "compute_homography", "GlobalRegReport", "MAX_STARS_FITTED"]

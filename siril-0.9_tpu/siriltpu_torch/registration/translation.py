@@ -23,7 +23,6 @@ rounds differently); the phase correlation and the ECC iteration run on
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -35,11 +34,7 @@ from siriltpu_torch.ops.fftreg import register_shift_frames
 from siriltpu_torch.ops.quality import (QUALTYPE_NORMAL, normalize_quality,
                                         quality_estimate)
 from siriltpu_torch.utils.rounding import np_round_to_int
-
-#: of the last ``register_ecc``: seconds reading frames, estimating their
-#: quality on the host, and in the ECC iteration on the device with its
-#: copies to and from it (read by chip_smoke.py)
-ecc_stats = {"read_s": 0.0, "quality_s": 0.0, "device_s": 0.0}
+from siriltpu_torch.utils.timing import span
 
 
 def _ref_index(seq) -> int:
@@ -104,20 +99,18 @@ def register_ecc(seq, layer: int, *, device,
     """ECC translation registration over full frames
     (``register_ecc``, registration.c:786-930), the iteration on
     ``device``. Failing frames are excluded from the sequence
-    (incl = False)."""
+    (incl = False). With tracing on, its stages are the spans ``ecc.read``
+    (frame reads), ``ecc.device`` (the iteration on the device with its
+    copies to and from it) and ``ecc.quality`` (host quality estimates)."""
     reg = seq.ensure_regparam(layer)
     ref_image = _ref_index(seq)
     indices = [i for i in range(seq.number)
                if process_all_frames or seq.imgparam[i].incl]
-    clock = time.perf_counter
-    read_s = quality_s = device_s = 0.0
-
-    t0 = clock()
-    ref_layer = seq.read_frame(ref_image).layer(layer)
-    t1 = clock()
+    with span("ecc.read"):
+        ref_layer = seq.read_frame(ref_image).layer(layer)
     qualities = np.full(seq.number, np.nan)
-    qualities[ref_image] = quality_estimate(ref_layer, QUALTYPE_NORMAL)
-    read_s, quality_s = t1 - t0, clock() - t1
+    with span("ecc.quality"):
+        qualities[ref_image] = quality_estimate(ref_layer, QUALTYPE_NORMAL)
     failed = 0
     others = [i for i in indices if i != ref_image]
     reg[ref_image].shiftx = 0
@@ -131,25 +124,22 @@ def register_ecc(seq, layer: int, *, device,
     chunk = 64
     for c0 in range(0, len(others), chunk):
         batch = others[c0: c0 + chunk]
-        t0 = clock()
-        layers = [seq.read_frame(i).layer(layer) for i in batch]
-        t1 = clock()
-        imgs8 = torch.from_numpy(
-            np.minimum(np.stack(layers), 255).astype(np.float32)).to(device)
-        txs, tys, rhos = (v.cpu().numpy()
-                          for v in ecc_translation_batch(ref8, imgs8))
-        t2 = clock()
-        for k, i in enumerate(batch):
-            if rhos[k] <= 0:
-                seq.set_included(i, False)
-                failed += 1
-                continue
-            qualities[i] = quality_estimate(layers[k], QUALTYPE_NORMAL)
-            reg[i].shiftx = int(-np_round_to_int(float(txs[k])))
-            reg[i].shifty = int(-np_round_to_int(float(tys[k])))
-        read_s += t1 - t0
-        device_s += t2 - t1
-        quality_s += clock() - t2
+        with span("ecc.read"):
+            layers = [seq.read_frame(i).layer(layer) for i in batch]
+        with span("ecc.device", device=torch.device(device)):
+            imgs8 = torch.from_numpy(
+                np.minimum(np.stack(layers), 255).astype(np.float32)).to(device)
+            txs, tys, rhos = (v.cpu().numpy()
+                              for v in ecc_translation_batch(ref8, imgs8))
+        with span("ecc.quality"):
+            for k, i in enumerate(batch):
+                if rhos[k] <= 0:
+                    seq.set_included(i, False)
+                    failed += 1
+                    continue
+                qualities[i] = quality_estimate(layers[k], QUALTYPE_NORMAL)
+                reg[i].shiftx = int(-np_round_to_int(float(txs[k])))
+                reg[i].shifty = int(-np_round_to_int(float(tys[k])))
 
     ok = [i for i in indices if not np.isnan(qualities[i])]
     nq = normalize_quality(qualities[ok])
@@ -157,9 +147,7 @@ def register_ecc(seq, layer: int, *, device,
         reg[i].quality = float(nq[k])
     best = ok[int(np.nanargmax(qualities[ok]))]
     seq.needs_saving = True
-    ecc_stats.update(read_s=read_s, quality_s=quality_s, device_s=device_s)
     return RegistrationReport(best_frame=best, failed=failed)
 
 
-__all__ = ["register_shift_dft", "register_ecc", "RegistrationReport",
-           "ecc_stats"]
+__all__ = ["register_shift_dft", "register_ecc", "RegistrationReport"]

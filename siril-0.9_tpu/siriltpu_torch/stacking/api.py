@@ -24,12 +24,18 @@ for their exact re-run (``_BlockLoop._linearfit``). ``stack_frames`` gathers its
 y-shifted blocks from frames on the device; the streaming
 ``stack_sequence`` reads them from the files with a host thread, into
 pinned memory, one block ahead of the card.
+
+With tracing on (``utils.timing``) ``stack_sequence`` and ``stack_frames``
+are spans over ``stack.normalize``, ``stack.read`` (the frames read
+whole), ``stack.read_block`` (the reader thread), ``stack.wait`` (the main
+thread waiting for it), ``stack.block`` (a row block's work),
+``stack.linearfit_fixup`` and ``result.to_host``; the counters
+``stack.blocks`` (blocks streamed) and ``linearfit.knife`` are always on.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Optional, Sequence as Seq, Tuple
@@ -50,6 +56,7 @@ from siriltpu_torch.ops.stats import (STATS_EXTRA, ikss_from_histogram,
 from siriltpu_torch.utils.interop import (frames_from_numpy, i32_to_u16,
                                           u16_to_i32, u16_to_numpy)
 from siriltpu_torch.utils.rounding import round_to_word_f
+from siriltpu_torch.utils.timing import count, current, span
 from siriltpu_torch.verify.oracle import normalize_pixel_vector
 
 NORM_MODES = ("none", "additive", "additive_scaling", "multiplicative",
@@ -57,16 +64,6 @@ NORM_MODES = ("none", "additive", "additive_scaling", "multiplicative",
 REJECTION_MODES = ("none", "percentile", "sigma", "sigmedian", "winsorized",
                    "linearfit")
 METHODS = ("sum", "mean", "median", "max", "min")
-
-#: of the last streaming stack: its row blocks, and the seconds its main
-#: thread waited for the reader thread to hand over a block (read by
-#: chip_smoke.py)
-stream_stats = {"blocks": 0, "wait_s": 0.0}
-
-#: of the last linearfit stack: the knife-edge pixels re-run on the host,
-#: and the seconds that took, the gather of their values on the device and
-#: the write-back included (read by chip_smoke.py)
-linearfit_stats = {"knife": 0, "fixup_s": 0.0}
 
 
 # ------------------------------------------------------------- normalization
@@ -136,17 +133,20 @@ def sequence_normalization(seq, layer: int, indices: Seq[int], mode: str):
     def compute(fr):
         return statistics(fr, layer, option=STATS_EXTRA)
 
-    missing = [i for i in indices if seq.imgparam[i].stats is None]
-    if missing:
-        # the first read, alone, settles the sequence's lazily opened state
-        seq.get_imstats(missing[0], layer, compute=compute)
-        with ThreadPoolExecutor(max_workers=_host_threads()) as pool:
-            list(pool.map(lambda i: seq.get_imstats(i, layer, compute=compute),
-                          missing[1:]))
-    stats = [seq.imgparam[i].stats for i in indices]
-    ref = seq.reference_image if seq.reference_image >= 0 else 0
-    ref_pos = indices.index(ref) if ref in indices else 0
-    return compute_normalization(stats, ref_pos, mode)
+    with span("stack.normalize", mode=mode):
+        missing = [i for i in indices if seq.imgparam[i].stats is None]
+        if missing:
+            # the first read, alone, settles the sequence's lazily opened
+            # state
+            seq.get_imstats(missing[0], layer, compute=compute)
+            with ThreadPoolExecutor(max_workers=_host_threads()) as pool:
+                list(pool.map(
+                    lambda i: seq.get_imstats(i, layer, compute=compute),
+                    missing[1:]))
+        stats = [seq.imgparam[i].stats for i in indices]
+        ref = seq.reference_image if seq.reference_image >= 0 else 0
+        ref_pos = indices.index(ref) if ref in indices else 0
+        return compute_normalization(stats, ref_pos, mode)
 
 
 # ----------------------------------------------------------------- filtering
@@ -360,8 +360,6 @@ class _BlockLoop:
         self.host_coeffs = (off, mul, scale)    # f64, for the exact re-run
         self.coeffs = torch.tensor(np.stack([off, mul, scale], axis=1),
                                    dtype=torch.float32, device=device)
-        if rejection == "linearfit":
-            linearfit_stats.update(knife=0, fixup_s=0.0)
         self.sx = torch.from_numpy(shifts[:, 0].astype(np.int64)).to(device)
         self.out = torch.empty((c, h, w), dtype=torch.int16, device=device)
         self.rejl = torch.zeros(c, dtype=torch.int64, device=device)
@@ -369,23 +367,24 @@ class _BlockLoop:
 
     def stack(self, ch: int, r0: int, r1: int, block: torch.Tensor) -> None:
         f, _, w = block.shape
-        norm = _normalize_block(block, self.coeffs, self.normalize)
-        if self.method == "median":
-            o = reject_stack(_to_u16(norm.reshape(f, -1)), "median", 0.0, 0.0)
-        elif self.rejection == "linearfit":
-            o, rl, rh = self._linearfit(
-                block, _xshift_block(norm, self.sx).reshape(f, -1))
-        else:
-            flat = _to_u16(_xshift_block(norm, self.sx).reshape(f, -1))
-            if self.rejection == "none":
-                o, rl, rh = reject_and_mean(flat, "none")
+        with span("stack.block", device=self.device):
+            norm = _normalize_block(block, self.coeffs, self.normalize)
+            if self.method == "median":
+                o = reject_stack(_to_u16(norm.reshape(f, -1)), "median", 0.0, 0.0)
+            elif self.rejection == "linearfit":
+                o, rl, rh = self._linearfit(
+                    block, _xshift_block(norm, self.sx).reshape(f, -1))
             else:
-                o, rl, rh = reject_stack(flat, self.rejection, self.siglow,
-                                         self.sighigh, with_counters=True)
-        if self.method == "mean":
-            self.rejl[ch] += rl.sum()
-            self.rejh[ch] += rh.sum()
-        self.out[ch, r0:r1] = o.view(torch.int16).reshape(r1 - r0, w)
+                flat = _to_u16(_xshift_block(norm, self.sx).reshape(f, -1))
+                if self.rejection == "none":
+                    o, rl, rh = reject_and_mean(flat, "none")
+                else:
+                    o, rl, rh = reject_stack(flat, self.rejection, self.siglow,
+                                             self.sighigh, with_counters=True)
+            if self.method == "mean":
+                self.rejl[ch] += rl.sum()
+                self.rejh[ch] += rh.sum()
+            self.out[ch, r0:r1] = o.view(torch.int16).reshape(r1 - r0, w)
 
     def _linearfit(self, block: torch.Tensor, flat: torch.Tensor):
         """The linearfit HYBRID on one block: the f32 fit decides every
@@ -401,34 +400,35 @@ class _BlockLoop:
         valid, v, rl, rh, knife = reject_linearfit(flat, self.siglow,
                                                    self.sighigh)
         o = _mean_of_survivors(v, valid)
-        t0 = time.perf_counter()
-        kidx = torch.nonzero(knife)[:, 0]
-        if kidx.numel() == 0:
-            return o, rl, rh
-        cols = (kidx % w)[None, :] - self.sx[:, None]
-        inside = ((cols >= 0) & (cols < w)).cpu().numpy()
-        raw = block.view(torch.int16)[
-            torch.arange(f, device=block.device)[:, None],
-            (kidx // w)[None, :], cols.clamp(0, w - 1)]
-        raw = raw.cpu().numpy().view(np.uint16)
-        off, mul, scale = self.host_coeffs
-        vec = np.zeros(raw.shape, np.uint16)
-        for i in range(f):
-            vec[i] = np.where(inside[i], normalize_pixel_vector(
-                raw[i], self.normalize, scale[i], off[i], mul[i]), 0)
-        mean, kl, kh = linearfit_exact(vec, (self.siglow, self.sighigh))
-        o.view(torch.int16)[kidx] = torch.from_numpy(
-            mean.view(np.int16)).to(o.device)
-        rl[kidx] = torch.from_numpy(kl).to(rl.device)
-        rh[kidx] = torch.from_numpy(kh).to(rh.device)
-        linearfit_stats["knife"] += int(kidx.numel())
-        linearfit_stats["fixup_s"] += time.perf_counter() - t0
+        with span("stack.linearfit_fixup"):
+            kidx = torch.nonzero(knife)[:, 0]
+            count("linearfit.knife", int(kidx.numel()))
+            if kidx.numel() == 0:
+                return o, rl, rh
+            cols = (kidx % w)[None, :] - self.sx[:, None]
+            inside = ((cols >= 0) & (cols < w)).cpu().numpy()
+            raw = block.view(torch.int16)[
+                torch.arange(f, device=block.device)[:, None],
+                (kidx // w)[None, :], cols.clamp(0, w - 1)]
+            raw = raw.cpu().numpy().view(np.uint16)
+            off, mul, scale = self.host_coeffs
+            vec = np.zeros(raw.shape, np.uint16)
+            for i in range(f):
+                vec[i] = np.where(inside[i], normalize_pixel_vector(
+                    raw[i], self.normalize, scale[i], off[i], mul[i]), 0)
+            mean, kl, kh = linearfit_exact(vec, (self.siglow, self.sighigh))
+            o.view(torch.int16)[kidx] = torch.from_numpy(
+                mean.view(np.int16)).to(o.device)
+            rl[kidx] = torch.from_numpy(kl).to(rl.device)
+            rh[kidx] = torch.from_numpy(kh).to(rh.device)
         return o, rl, rh
 
     def result(self) -> StackResult:
-        return StackResult(u16_to_numpy(self.out.view(torch.uint16)),
-                           self.rejl.cpu().numpy(), self.rejh.cpu().numpy(),
-                           self.total)
+        nbytes = 2 * self.out.numel() + 16 * self.rejl.numel()
+        with span("result.to_host", device=self.device, bytes=nbytes):
+            return StackResult(u16_to_numpy(self.out.view(torch.uint16)),
+                               self.rejl.cpu().numpy(), self.rejh.cpu().numpy(),
+                               self.total)
 
 
 def stack_frames(frames, *, device, method: str = "mean",
@@ -445,40 +445,42 @@ def stack_frames(frames, *, device, method: str = "mean",
     ``shifts`` is (F, 2) int (shiftx, shifty). The result does not depend
     on ``block_rows``. Returns NumPy arrays, as ``siriltpu`` does.
     """
-    device = torch.device(device)
-    if isinstance(frames, torch.Tensor):
-        frames = frames.to(device)
-    else:
-        frames = frames_from_numpy(np.asarray(frames), device)
-    if frames.dtype != torch.uint16 or frames.dim() != 4:
-        raise ValueError(f"expected (F, C, H, W) uint16 frames, got "
-                         f"{tuple(frames.shape)} {frames.dtype}")
-    f, c, h, w = frames.shape
-    shifts = (np.zeros((f, 2), dtype=np.int32) if shifts is None
-              else np.asarray(shifts, dtype=np.int32))
-
-    if method in ("sum", "max", "min"):
-        if method == "sum":
-            out, _ = basic_stack.stack_sum(frames, shifts)
+    with span("stack_frames", method=method, rejection=rejection):
+        device = torch.device(device)
+        if isinstance(frames, torch.Tensor):
+            frames = frames.to(device)
         else:
-            out = getattr(basic_stack, f"stack_{method}")(frames, shifts)
-        return StackResult(u16_to_numpy(out), np.zeros(c), np.zeros(c),
-                           f * c * h * w)
-    _check_modes(method, rejection)
-    if coeffs is None and normalize != "none":
-        coeffs = compute_normalization(ikss_stats(frames), 0, normalize)
-    loop = _BlockLoop(device, (f, c, h, w), shifts, coeffs, method=method,
-                      rejection=rejection, sig=sig, normalize=normalize)
-    if block_rows is None:
-        block_rows = default_block_rows(f, w)
-    # the median stack applies no shifts (reference behavior)
-    sy = torch.from_numpy((shifts[:, 1] if method == "mean"
-                           else np.zeros(f)).astype(np.int64)).to(device)
-    for ch in range(c):
-        for r0 in range(0, h, block_rows):
-            r1 = min(r0 + block_rows, h)
-            loop.stack(ch, r0, r1, _gather_block_rows(frames, ch, r0, r1, sy))
-    return loop.result()
+            frames = frames_from_numpy(np.asarray(frames), device)
+        if frames.dtype != torch.uint16 or frames.dim() != 4:
+            raise ValueError(f"expected (F, C, H, W) uint16 frames, got "
+                             f"{tuple(frames.shape)} {frames.dtype}")
+        f, c, h, w = frames.shape
+        shifts = (np.zeros((f, 2), dtype=np.int32) if shifts is None
+                  else np.asarray(shifts, dtype=np.int32))
+
+        if method in ("sum", "max", "min"):
+            if method == "sum":
+                out, _ = basic_stack.stack_sum(frames, shifts)
+            else:
+                out = getattr(basic_stack, f"stack_{method}")(frames, shifts)
+            return StackResult(u16_to_numpy(out), np.zeros(c), np.zeros(c),
+                               f * c * h * w)
+        _check_modes(method, rejection)
+        if coeffs is None and normalize != "none":
+            with span("stack.normalize", mode=normalize):
+                coeffs = compute_normalization(ikss_stats(frames), 0, normalize)
+        loop = _BlockLoop(device, (f, c, h, w), shifts, coeffs, method=method,
+                          rejection=rejection, sig=sig, normalize=normalize)
+        if block_rows is None:
+            block_rows = default_block_rows(f, w)
+        # the median stack applies no shifts (reference behavior)
+        sy = torch.from_numpy((shifts[:, 1] if method == "mean"
+                               else np.zeros(f)).astype(np.int64)).to(device)
+        for ch in range(c):
+            for r0 in range(0, h, block_rows):
+                r1 = min(r0 + block_rows, h)
+                loop.stack(ch, r0, r1, _gather_block_rows(frames, ch, r0, r1, sy))
+        return loop.result()
 
 
 def stack_sequence(seq, *, device, method: str = "mean", layer_shifts: int = 0,
@@ -491,31 +493,34 @@ def stack_sequence(seq, *, device, method: str = "mean", layer_shifts: int = 0,
     cached stats → the frames read whole, or in row blocks with
     ``stream`` → device stacking. The .seq-level entry point matching
     start_stacking (stacking.c:1871-1927)."""
-    device = torch.device(device)
-    indices = filter_indices(seq, filter_type=filter_type, param=filter_param,
-                             layer=layer_shifts)
-    if len(indices) < 2:
-        raise ValueError("No frame selected for stacking (select at least 2)")
-    shifts = seq.reg_shifts(layer_shifts)[indices]
-    if stream is None:
-        # stream when the whole sequence would not comfortably fit the
-        # reference's memory budget (stacking.c:1903-1915), on the host or
-        # on the device
-        seq_mb = len(indices) * max(seq.nb_layers, 1) * seq.rx * seq.ry * 2 / (1 << 20)
-        stream = seq_mb > 0.25 * min(get_available_memory_mb(),
-                                     get_device_memory_bytes(device) >> 20)
-    if stream and method in ("mean", "median"):
-        return _stack_sequence_streaming(
-            seq, indices, shifts, device=device, method=method,
-            layer_shifts=layer_shifts, rejection=rejection, sig=sig,
-            normalize=normalize, block_rows=block_rows)
-    frames = np.stack([seq.read_frame(i).data for i in indices])
-    coeffs = None
-    if normalize != "none" and method in ("mean", "median"):
-        coeffs = sequence_normalization(seq, layer_shifts, indices, normalize)
-    return stack_frames(frames, device=device, method=method, shifts=shifts,
-                        rejection=rejection, sig=sig, normalize=normalize,
-                        coeffs=coeffs, block_rows=block_rows)
+    with span("stack_sequence", method=method, rejection=rejection):
+        device = torch.device(device)
+        indices = filter_indices(seq, filter_type=filter_type, param=filter_param,
+                                 layer=layer_shifts)
+        if len(indices) < 2:
+            raise ValueError("No frame selected for stacking (select at least 2)")
+        shifts = seq.reg_shifts(layer_shifts)[indices]
+        if stream is None:
+            # stream when the whole sequence would not comfortably fit the
+            # reference's memory budget (stacking.c:1903-1915), on the host or
+            # on the device
+            seq_mb = (len(indices) * max(seq.nb_layers, 1) * seq.rx * seq.ry * 2
+                      / (1 << 20))
+            stream = seq_mb > 0.25 * min(get_available_memory_mb(),
+                                         get_device_memory_bytes(device) >> 20)
+        if stream and method in ("mean", "median"):
+            return _stack_sequence_streaming(
+                seq, indices, shifts, device=device, method=method,
+                layer_shifts=layer_shifts, rejection=rejection, sig=sig,
+                normalize=normalize, block_rows=block_rows)
+        with span("stack.read"):
+            frames = np.stack([seq.read_frame(i).data for i in indices])
+        coeffs = None
+        if normalize != "none" and method in ("mean", "median"):
+            coeffs = sequence_normalization(seq, layer_shifts, indices, normalize)
+        return stack_frames(frames, device=device, method=method, shifts=shifts,
+                            rejection=rejection, sig=sig, normalize=normalize,
+                            coeffs=coeffs, block_rows=block_rows)
 
 
 def _stack_sequence_streaming(seq, indices, shifts, *, device, method: str,
@@ -556,28 +561,29 @@ def _stack_sequence_streaming(seq, indices, shifts, *, device, method: str,
     done = [None, None]   # per buffer: the work on the block it held
     copy_stream = torch.cuda.Stream(device) if cuda else None
 
+    caller = current()
+
     def load(bi):
         ch, r0, r1 = blocks[bi]
-        if done[bi % 2] is not None:
-            done[bi % 2].synchronize()
-        host = bufs[bi % 2][: f * (r1 - r0) * w].view(f, r1 - r0, w)
-        _gather_block_rows_from_seq(seq, ch, r0, r1, indices, sy,
-                                    out=host.numpy().view(np.uint16))
-        if not cuda:
-            return host, None
-        with torch.cuda.device(device), torch.cuda.stream(copy_stream):
-            dev = host.to(device, non_blocking=True)
-            arrived = torch.cuda.Event()
-            arrived.record(copy_stream)
-        return dev, arrived
+        with span("stack.read_block", parent=caller):
+            if done[bi % 2] is not None:
+                done[bi % 2].synchronize()
+            host = bufs[bi % 2][: f * (r1 - r0) * w].view(f, r1 - r0, w)
+            _gather_block_rows_from_seq(seq, ch, r0, r1, indices, sy,
+                                        out=host.numpy().view(np.uint16))
+            if not cuda:
+                return host, None
+            with torch.cuda.device(device), torch.cuda.stream(copy_stream):
+                dev = host.to(device, non_blocking=True)
+                arrived = torch.cuda.Event()
+                arrived.record(copy_stream)
+            return dev, arrived
 
-    wait_s = 0.0
     with ThreadPoolExecutor(max_workers=1) as pool:
         fut = pool.submit(load, 0)
         for bi, (ch, r0, r1) in enumerate(blocks):
-            t0 = time.perf_counter()
-            block, arrived = fut.result()
-            wait_s += time.perf_counter() - t0
+            with span("stack.wait"):
+                block, arrived = fut.result()
             if bi + 1 < len(blocks):
                 fut = pool.submit(load, bi + 1)
             if cuda:
@@ -588,12 +594,11 @@ def _stack_sequence_streaming(seq, indices, shifts, *, device, method: str,
             if cuda:
                 done[bi % 2] = torch.cuda.Event()
                 done[bi % 2].record(stream)
-    stream_stats.update(blocks=len(blocks), wait_s=wait_s)
+    count("stack.blocks", len(blocks))
     return loop.result()
 
 
 __all__ = ["stack_frames", "stack_sequence", "stack_summary",
            "compute_normalization", "sequence_normalization", "ikss_stats",
            "filter_indices", "StackResult", "NORM_MODES", "REJECTION_MODES",
-           "METHODS", "default_block_rows", "stream_stats",
-           "linearfit_stats"]
+           "METHODS", "default_block_rows"]

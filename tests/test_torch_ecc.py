@@ -40,6 +40,7 @@ from siriltpu_torch.ops import ecc as tecc  # noqa: E402
 from siriltpu_torch.ops import interp as tinterp  # noqa: E402
 from siriltpu_torch.registration import translation as ttrans  # noqa: E402
 from siriltpu_torch.stacking import api as tapi  # noqa: E402
+from siriltpu_torch.utils import timing  # noqa: E402
 from siriltpu_torch.utils.interop import sequence_to_fields  # noqa: E402
 
 from test_c_goldens import GOLDEN_DIR, Reader  # noqa: E402
@@ -207,8 +208,13 @@ def test_register_ecc_matches_jax(all_frames):
             seq.set_included(5, False)
             seq.reference_image = 1
     want = jtrans.register_ecc(jseq, 0, process_all_frames=all_frames)
-    got = ttrans.register_ecc(tseq, 0, device="cpu",
-                              process_all_frames=all_frames)
+    timing.enable()
+    try:
+        got = ttrans.register_ecc(tseq, 0, device="cpu",
+                                  process_all_frames=all_frames)
+    finally:
+        timing.disable()
+    seconds = timing.totals(timing.collect())
     assert (got.best_frame, got.failed) == (want.best_frame, want.failed)
     assert got.failed == 1 and not tseq.imgparam[3].incl
     # shifts, qualities (f64 on the host) and the excluded set, all equal
@@ -218,9 +224,9 @@ def test_register_ecc_matches_jax(all_frames):
     for i in tseq.included_indices():
         dy, dx = drifts[i][0] - base[0], drifts[i][1] - base[1]
         assert tuple(tseq.reg_shifts(0)[i]) == (-dx, -dy), i
-    stats = ttrans.ecc_stats
-    assert min(stats.values()) > 0 and set(stats) == {"read_s", "quality_s",
-                                                      "device_s"}
+    # the stages' spans: reads, the device loop, the host quality
+    assert min(seconds.values()) > 0 and set(seconds) == {
+        "ecc.read", "ecc.device", "ecc.quality"}
 
 
 @pytest.mark.parametrize("stream", [False, True])
@@ -243,10 +249,11 @@ def test_register_ecc_then_linearfit_stack_matches_jax(stream):
     kw = dict(method="mean", rejection="linearfit", sig=(3.0, 2.0),
               normalize="additive_scaling", stream=stream)
     want = japi.stack_sequence(jseq, **kw)
+    knife = timing.counters().get("linearfit.knife", 0)
     got = tapi.stack_sequence(tseq, device="cpu", block_rows=40, **kw)
     np.testing.assert_array_equal(got.data, want.data)
     np.testing.assert_array_equal(got.rejection_low, want.rejection_low)
     np.testing.assert_array_equal(got.rejection_high, want.rejection_high)
     assert got.rejection_low.sum() > 0 and got.rejection_high.sum() > 0
-    assert tapi.linearfit_stats["knife"] > 0
+    assert timing.counters()["linearfit.knife"] > knife
     assert got.total_pixels == want.total_pixels

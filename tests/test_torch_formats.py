@@ -356,14 +356,20 @@ def test_format_time_matches_jax(seconds):
 
 def test_timed_and_device_trace(tmp_path):
     """``timed`` logs the reference's line; ``device_trace`` writes a
-    torch.profiler Chrome trace of the block (on the CPU here)."""
+    torch.profiler Chrome trace of the block (on the CPU here), with the
+    program's stage names in it, and keeps no span of its own."""
     import json
-    from siriltpu_torch.utils.timing import device_trace, timed
+    from siriltpu_torch.ops.cuda.reject_stack import reject_stack
+    from siriltpu_torch.utils.timing import collect, device_trace, span, timed
     logs = []
     with timed("op", log=logs.append):
         pass
     assert logs[0].startswith("Execution time [op]: ") and logs[0].endswith("ms")
+    vals = torch.arange(5 * 64, dtype=torch.int32).reshape(5, 64).to(torch.uint16)
     with device_trace(str(tmp_path / "trace")):
         torch.ones(64).sum()
+        reject_stack(vals, "median", 0.0, 0.0)
+    assert span("off") is span("still off") and collect() == []
     events = json.load(open(tmp_path / "trace" / "trace.json"))["traceEvents"]
     assert any("aten::sum" in e.get("name", "") for e in events)
+    assert any(e.get("name") == "stack.reject" for e in events)

@@ -66,6 +66,7 @@ from siriltpu_torch.registration import matching as tm  # noqa: E402
 from siriltpu_torch.registration import ransac as tr  # noqa: E402
 from siriltpu_torch.stacking import api as tapi  # noqa: E402
 from siriltpu_torch.utils import interop  # noqa: E402
+from siriltpu_torch.utils import timing  # noqa: E402
 
 #: one frame shape for every star-finder case, so that JAX compiles once
 FH, FW = 160, 192
@@ -663,16 +664,25 @@ def test_register_global_star_rgb_in_memory():
                           (frames * 0.6).astype(np.uint16)], axis=1)
     seq = tsequence.internal_sequence([tframe.Frame(f) for f in rgb])
     out = []
-    rep = tg.register_global_star(seq, 1, device="cpu", write_output=False,
-                                  output_frames=out)
+    timing.enable()
+    try:
+        rep = tg.register_global_star(seq, 1, device="cpu", write_output=False,
+                                      output_frames=out)
+    finally:
+        timing.disable()
+    spans = timing.collect()
     assert rep.registered == 4 and len(seq.regparam[1]) == 4
     np.testing.assert_array_equal(out[0].data, rgb[0])
     for i in range(1, 4):
         assert out[i].data.shape == (3, FH, FW)
         np.testing.assert_array_equal(out[i].data, tw.warp_frame_bu(
             rgb[i], rep.homographies[i], (FH, FW), device="cpu"))
-    assert set(tg.global_stats) == {"read_s", "wait_s", "starfind_s", "match_s",
-                                    "warp_s", "copy_s", "write_s"}
+    # the stages' spans; the reads on the loader thread
+    assert set(timing.totals(spans)) == {
+        "global.read", "global.wait", "global.starfind", "global.match",
+        "global.warp", "global.copy", "global.write"}
+    main = {s.thread for s in spans if s.name == "global.match"}
+    assert all(s.thread not in main for s in spans if s.name == "global.read")
 
 
 def test_register_global_star_error_cleanup(tmp_path, monkeypatch):

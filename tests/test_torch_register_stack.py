@@ -126,9 +126,6 @@ def test_register_and_stack_rejects_unported_and_bad_selection():
 
 def test_small_bench_runs():
     bench = trs.RegisterStackBench(size=128, nframes=8, device="cpu")
-    assert bench.run() > 0
-    fps, drain = bench.run(repeats=2, with_drain_stats=True)
-    assert fps > 0 and drain["fps_incl_drain"] > 0
     frames = bench.frames()
     assert frames.shape == (8, 128, 128) and frames.dtype == torch.uint16
     # the generated sequence is the shifted sky: frame i's content sits

@@ -24,6 +24,7 @@ from siriltpu_torch.ops import rejection as trej  # noqa: E402
 from siriltpu_torch.ops.cuda import reject_stack as rs  # noqa: E402
 from siriltpu_torch.utils.build import KERNELS  # noqa: E402
 from siriltpu_torch.utils.interop import frames_from_numpy  # noqa: E402
+from siriltpu_torch.utils.timing import counters  # noqa: E402
 
 PKG_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "siril-0.9_tpu")
@@ -294,6 +295,11 @@ CUDA_CASES = ([(r, f) for r in KERNELS for f in CASE_FS]
               + [("winsorized", 2000)])
 
 
+def launched(kernel: str) -> int:
+    """The kernel's launches counted so far in this process."""
+    return counters().get(f"reject.launches.{kernel}", 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rejection,F", CUDA_CASES)
 def test_cuda_kernel_matches_plain(cuda_device, monkeypatch, rejection, F):
@@ -314,10 +320,10 @@ def test_cuda_kernel_matches_plain(cuda_device, monkeypatch, rejection, F):
     plan = rs.launch_plan(rejection, F, p)
     assert plan.scratch == scratch
     assert plan.chunk == (256 if scratch else p)
-    before = rs.launches[rejection]
+    before = launched(rejection)
     got = rs.reject_cuda(vals, rejection, lo, hi)
     torch.cuda.synchronize()
-    assert rs.launches[rejection] == before + (5 if scratch else 1)
+    assert launched(rejection) == before + (5 if scratch else 1)
     want = rs.reject_plain(vals, rejection, lo, hi)
     for name, g, w in zip(("mean", "degen", "rejl", "rejh"), got, want):
         np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=name)
@@ -362,7 +368,7 @@ def test_cuda_launch_plan(cuda_device):
 def test_cuda_wrapper_matches_reject_and_mean(cuda_device, rejection):
     vals = frames_from_numpy(make_vals(25, 4096, degen_every=3), cuda_device)
     lo, hi = SIGS[rejection]
-    before = rs.launches[rejection]
+    before = launched(rejection)
     # the CUDA route makes no host sync, degenerate pixels included
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -370,7 +376,7 @@ def test_cuda_wrapper_matches_reject_and_mean(cuda_device, rejection):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert rs.launches[rejection] == before + 1
+    assert launched(rejection) == before + 1
     if rejection == "median":
         np.testing.assert_array_equal(_ints(got[0]),
                                       _ints(trej.masked_median(vals)))

@@ -19,14 +19,19 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from siriltpu_torch.ops.cuda import reject_stack as rs  # noqa: E402
 from siriltpu_torch.stacking import api as tapi  # noqa: E402
+from siriltpu_torch.utils.timing import counters  # noqa: E402
 
 F, H, W = 12, 24, 40
 #: (siglow, sighigh) per rejection; percentile takes (plow, phigh)
 SIGS = {"none": (3.0, 3.0), "sigma": (3.0, 3.0), "percentile": (0.2, 0.1),
         "sigmedian": (3.0, 3.0), "winsorized": (3.0, 3.0),
         "linearfit": (2.0, 1.5)}
+
+
+def counted(name: str):
+    """A counter of the program's tracing, 0 before its first count."""
+    return counters().get(name, 0)
 
 
 def make_frames(c: int, seed: int = 0) -> np.ndarray:
@@ -68,11 +73,12 @@ def test_stack_frames_mean_matches_jax(rejection, normalize, c):
     if rejection != "none":
         assert want.rejection_low.sum() > 0 and want.rejection_high.sum() > 0
     for block_rows in (None, 7):
+        knife = counted("linearfit.knife")
         _assert_same(tapi.stack_frames(frames, device="cpu",
                                        block_rows=block_rows, **kw), want)
         if rejection == "linearfit":
             # the exact host re-run of knife-edge pixels took part
-            assert tapi.linearfit_stats["knife"] > 0
+            assert counted("linearfit.knife") > knife
 
 
 @pytest.mark.parametrize("c", [1, 3])
@@ -167,11 +173,12 @@ def _assert_sequence_stacks(tmp_path, frames, kw, kind="ser"):
     keep = [i for i in range(F) if i != 5]
     assert want.total_pixels == len(keep) * frames[0].size
     for stream, block_rows in ((False, None), (True, 7), (True, None)):
+        blocks = counted("stack.blocks")
         got = tapi.stack_sequence(tseq, device="cpu", stream=stream,
                                   block_rows=block_rows, **kw)
         _assert_same(got, want)
         if stream and kw["method"] in ("mean", "median"):
-            assert tapi.stream_stats["blocks"] == frames.shape[1] * (
+            assert counted("stack.blocks") - blocks == frames.shape[1] * (
                 -(-H // block_rows) if block_rows else 1)
     coeffs = None
     if kw.get("normalize", "none") != "none":
@@ -231,13 +238,13 @@ def test_stack_sequence_filters_and_streams_by_memory(tmp_path, monkeypatch):
     assert want.total_pixels == len(tapi.filter_indices(
         tseq, filter_type="best_quality", param=50.0)) * H * W
     # with memory to spare the frames are read whole...
-    tapi.stream_stats.update(blocks=0)
+    blocks = counted("stack.blocks")
     _assert_same(tapi.stack_sequence(tseq, device="cpu", **kw), want)
-    assert tapi.stream_stats["blocks"] == 0
+    assert counted("stack.blocks") == blocks
     # ...and streamed once the sequence is more than a quarter of it
     monkeypatch.setattr(tapi, "get_available_memory_mb", lambda: 0)
     _assert_same(tapi.stack_sequence(tseq, device="cpu", **kw), want)
-    assert tapi.stream_stats["blocks"] == 1
+    assert counted("stack.blocks") == blocks + 1
 
 
 def test_stack_sequence_rejects_unported_and_bad_arguments(tmp_path):
@@ -271,9 +278,9 @@ def test_cuda_stack_frames_matches_cpu(cuda_device, method, rejection):
     kw = dict(method=method, shifts=SHIFTS, rejection=rejection,
               sig=SIGS[rejection], normalize="additive_scaling", block_rows=7)
     kernel = "median" if method == "median" else rejection
-    before = rs.launches[kernel]
+    before = counted(f"reject.launches.{kernel}")
     got = tapi.stack_frames(frames, device=cuda_device, **kw)
-    assert rs.launches[kernel] > before
+    assert counted(f"reject.launches.{kernel}") > before
     _assert_same(got, tapi.stack_frames(frames, device="cpu", **kw))
 
 
@@ -285,8 +292,9 @@ def test_cuda_stack_frames_linearfit_matches_cpu(cuda_device):
     frames = make_frames(3)
     kw = dict(method="mean", shifts=SHIFTS, rejection="linearfit",
               sig=SIGS["linearfit"], normalize="additive_scaling", block_rows=7)
+    knife = counted("linearfit.knife")
     got = tapi.stack_frames(frames, device=cuda_device, **kw)
-    assert tapi.linearfit_stats["knife"] > 0
+    assert counted("linearfit.knife") > knife
     _assert_same(got, tapi.stack_frames(frames, device="cpu", **kw))
 
 
@@ -315,7 +323,7 @@ def test_cuda_stack_sequence_matches_cpu(cuda_device, tmp_path, method,
     kw = dict(method=method, rejection=rejection, sig=SIGS[rejection],
               normalize="additive_scaling", block_rows=7, stream=stream)
     kernel = "median" if method == "median" else rejection
-    before = rs.launches[kernel]
+    before = counted(f"reject.launches.{kernel}")
     got = tapi.stack_sequence(seq, device=cuda_device, **kw)
-    assert rs.launches[kernel] >= before + 3 * 4
+    assert counted(f"reject.launches.{kernel}") >= before + 3 * 4
     _assert_same(got, tapi.stack_sequence(seq, device="cpu", **kw))
