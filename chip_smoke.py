@@ -32,7 +32,13 @@ exits non-zero without printing a result:
    to the plain version run in 2^20-pixel chunks;
 5. its timing: frames/s end to end (mean of 3 warm runs) and per-stage ms
    (CUDA events, median of 3 warm runs), with the plain version's ms for
-   the kernel and for the whole stack stage at the same shape;
+   the kernel and for the whole stack stage at the same shape; then the
+   align kernel (align_shift; phase 4's register_and_stack must have made
+   exactly one launch of it) against align_frames_gather word for word,
+   its device ms a launch back to back beside its bound (each frame word
+   read once and written once) and beside the bytes the shifts need, the
+   ms of one call, and the ms of the plain align_frames_slice (its host
+   read of the shifts included) and align_frames_gather;
 6. config 2: stack_frames on 50 x 1 x 2048 x 2048 frames made on the card
    (shifts in [-20, 20]): the median stack, then the mean stack with sigma
    (3, 3), percentile (0.2, 0.1) and sigmedian (3, 3), no normalization;
@@ -42,7 +48,12 @@ exits non-zero without printing a result:
 7. config 3: stack_frames(mean, winsorized (3, 3), additive_scaling) on
    1000 x 1 x 480 x 640 frames made on the card (shifts in [-20, 20]),
    with the block loop's time alone and what the exact re-run of the
-   degenerate pixels costs inside the kernel;
+   degenerate pixels costs inside the kernel; then register_and_stack on
+   these frames, the planetary cell's shape (winsorized (3, 3)): one align
+   launch, its stack equal to the winsorized kernel over
+   align_frames_gather; and the align kernel timed as in phase 5. The
+   kernels line carries the align kernel's launches, words that differ,
+   and this shape's ms, align_frames_gather ms and bound;
 8. the sequence path, in a temporary directory that is removed at the end:
    the frames of config 3 written as a mono 16-bit SER file with SerFile,
    opened with ser_sequence, registered with register_shift_dft on a
@@ -334,6 +345,8 @@ CHUNK = 1 << 20
 #: for the few slow ones; the result is per pixel, the same in any blocking
 REF_CHUNK = 1 << 14
 REPS = 3
+#: warm runs of the align kernel timed (a launch takes well under 1 ms)
+ALIGN_REPS = 20
 #: device-memory rate of one H100 SXM (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 #: least warps the winsorized kernel keeps resident per SM at F = 1000
@@ -342,6 +355,8 @@ PALLAS = "siril-0.9_tpu/siriltpu/ops/pallas/reject_stack.py"
 #: first line of each kernel's branch of _make_kernel
 REPLACES = {"sigma": 797, "median": 255, "percentile": 271, "sigmedian": 297,
             "winsorized": 611}
+#: what the align kernel replaces: XLA's align in the JAX package
+ALIGN_REPLACES = "siril-0.9_tpu/siriltpu/pipelines/register_stack.py:_align_frames_auto_impl"
 #: (siglow, sighigh) of each kernel's full-size run; percentile takes
 #: (plow, phigh)
 SIGS = {"sigma": (SIG, SIG), "median": (0.0, 0.0), "percentile": (0.2, 0.1),
@@ -480,6 +495,10 @@ class Record:
         self.ms = {}
         self.bound = {}
         self.library = dict.fromkeys(names)
+        #: the align kernel: launches of the main paths, words that differ
+        #: from align_frames_gather, and at the planetary shape (phase 7)
+        #: its ms, align_frames_gather's ms and its bound
+        self.align = {"launches": 0, "err": 0}
 
     def check(self, name: str, errs, what: str):
         self.err[name] = max(self.err[name], *errs)
@@ -635,6 +654,7 @@ def phase4_5(rs, rec, dev, card):
     torch.cuda.synchronize()
     launches = kernel_launches()
     rec.count(launches, "register_and_stack", "sigma")
+    align_launched(rec, "phase4 register_and_stack")
     if not np.array_equal(shifts_to_numpy(sx, sy), -bench.shifts):
         fail("recovered shifts differ from the negated generated ones")
     if tuple(stacked.shape) != (SIZE, SIZE) or stacked.dtype != torch.uint16:
@@ -642,7 +662,7 @@ def phase4_5(rs, rec, dev, card):
     if quality.shape != (NFRAMES,) or not bool(torch.isfinite(quality).all()):
         fail("quality is not finite of shape (F,)")
     # the plain reference aligns with the gather form (the main path used
-    # the slice form) and stacks in 2^20-pixel chunks
+    # the align kernel) and stacks in 2^20-pixel chunks
     flat = prs.align_frames_gather(frames, sx, sy).reshape(NFRAMES, -1)
     kmean, krejl, krejh = rs.reject_stack(flat, "sigma", SIG, SIG, with_counters=True)
     torch.cuda.synchronize()
@@ -686,6 +706,111 @@ def phase4_5(rs, rec, dev, card):
           + " ".join(f"{k}_ms={v:.3f}" for k, v in ms.items()), flush=True)
     rec.ms["sigma"] = (ms["kernel"], ms["plain_kernel"])
     yardsticks(rec, card, "sigma", flat)
+    del aligned, flat
+    torch.cuda.empty_cache()
+    align_timing(rec, card, "phase5", frames, sx, sy)
+
+
+def align_launched(rec, what: str):
+    """A main path since ``reset_counts`` must have made exactly one align
+    launch; it adds to the kernel's launches."""
+    n = counted("align.launches")
+    if n != 1:
+        fail(f"{what} made {n} align launches, not 1")
+    rec.align["launches"] += n
+
+
+def launch_ms(fn, n: int = ALIGN_REPS, groups: int = REPS):
+    """Device ms of one ``fn()`` launched back to back: one launch queued
+    first, then ``n`` launches between one pair of CUDA events, so the host's
+    time to launch hides behind the card's work; the median of ``groups``."""
+    import torch
+    times = []
+    for _ in range(groups):
+        fn()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
+def align_timing(rec, card, label: str, frames, sx, sy):
+    """The align kernel on (F, H, W) frames and their shifts on the card:
+    word-equal to align_frames_gather; its device ms a launch (back to
+    back) beside its bound and beside the bytes these shifts need, the ms
+    of one call (CUDA events around it from an idle card, so the wrapper's
+    host time is in it), and the ms of the plain align_frames_slice and
+    align_frames_gather. Returns the kernel's ms, gather's ms and the
+    bound's ms."""
+    import torch
+    from siriltpu_torch.ops.cuda.align_shift import align_shift
+    from siriltpu_torch.pipelines import register_stack as prs
+
+    f, h, w = frames.shape
+    ms = {}
+    ms["kernel"] = launch_ms(lambda: align_shift(frames, sx, sy))
+    ms["call"], got = cuda_ms(lambda: align_shift(frames, sx, sy), reps=ALIGN_REPS)
+    ms["slice"], _ = cuda_ms(lambda: prs.align_frames_slice(frames, sx, sy))
+    ms["gather"], want = cuda_ms(lambda: prs.align_frames_gather(frames, sx, sy))
+    err = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+    rec.align["err"] = max(rec.align["err"], err)
+    del got, want
+    torch.cuda.empty_cache()
+    nbytes = 4 * f * h * w
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    # the words a frame's shift leaves inside it are read once, every word
+    # is written once: the bound counts the zero fill as read too
+    cx = np.clip(np.abs(sx.cpu().numpy().astype(np.int64)), 0, w)
+    cy = np.clip(np.abs(sy.cpu().numpy().astype(np.int64)), 0, h)
+    needed = 2 * f * h * w + 2 * int(((h - cy) * (w - cx)).sum())
+    print(f"{label} align_shift [{card}] {f}x{h}x{w}: kernel vs "
+          f"align_frames_gather words that differ={err}; kernel_ms={ms['kernel']:.4f} "
+          f"a launch back to back, bound {bound:.4f} ms ({nbytes} bytes at "
+          f"{HBM_BYTES_PER_S:.3g} B/s, {100 * bound / ms['kernel']:.1f}% of it; "
+          f"these shifts need {needed} bytes, "
+          f"{100 * needed / nbytes * bound / ms['kernel']:.1f}%); one call_ms="
+          f"{ms['call']:.4f}; plain slice_ms={ms['slice']:.3f} "
+          f"gather_ms={ms['gather']:.3f}", flush=True)
+    if err:
+        fail(f"{label}: the align kernel differs from align_frames_gather")
+    return ms["kernel"], ms["gather"], bound
+
+
+def phase7_align(rs, rec, card, frames, shifts):
+    """The planetary shape through the main path: register_and_stack
+    (winsorized (3, 3), the cell's centred 256 selection) makes one align
+    launch and equals the winsorized kernel over align_frames_gather of its
+    shifts; then the align kernel's timing at this shape."""
+    import torch
+    from siriltpu_torch.pipelines import register_stack as prs
+
+    f, h, w = frames.shape
+    sel = ((w - SEL3) // 2, (h - SEL3) // 2, SEL3)
+    reset_counts()
+    stacked, (sx, sy), _ = prs.register_and_stack(
+        frames, sel=sel, rejection="winsorized", sig=(3.0, 3.0),
+        return_device=True)
+    torch.cuda.synchronize()
+    align_launched(rec, "phase7 register_and_stack")
+    rec.count(kernel_launches(), "phase7 register_and_stack", "winsorized")
+    want = rs.reject_stack(prs.align_frames_gather(frames, sx, sy).reshape(f, -1),
+                           "winsorized", 3.0, 3.0)
+    err = max_abs_diff(stacked.reshape(-1), want)
+    print(f"phase7 register_and_stack [{card}] {f}x{h}x{w} winsorized (3, 3): "
+          f"align launches={counted('align.launches')}; stack vs winsorized "
+          f"kernel over align_frames_gather max|diff|={err}", flush=True)
+    rec.check("winsorized", [err], "phase7 register_and_stack")
+    del stacked, want
+    torch.cuda.empty_cache()
+    k_ms, g_ms, bound = align_timing(
+        rec, card, "phase7", frames,
+        *(torch.from_numpy(shifts[:, i].copy()).to(frames.device) for i in (0, 1)))
+    rec.align.update(shape=[f, h, w], ms=k_ms, plain_ms=g_ms, bound_ms=bound)
 
 
 def reference_flat(frames, shifts, method: str, coeffs):
@@ -3013,6 +3138,7 @@ def main(argv=None) -> int:
             ("mean", "winsorized", "additive_scaling",
              stack_config(rs, rec, dev, card, "phase7", frames, shifts, "mean",
                           "winsorized", "additive_scaling"))]
+        phase7_align(rs, rec, card, frames.reshape(*CONFIG3), shifts)
         del frames
         torch.cuda.empty_cache()
         print(f"phase7 done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -3066,7 +3192,15 @@ def main(argv=None) -> int:
         "max_abs_err": rec.err[k], "ms": rec.ms[k][0], "plain_ms": rec.ms[k][1],
         "bound_ms": rec.bound[k], "bound_by": "bytes", "bound": "hbm",
         "library_ms": rec.library[k]}
-        for k in build.KERNELS]}
+        for k in build.KERNELS] + [{
+        "name": "align_shift", "route": "cuda",
+        "source": "siril-0.9_tpu/siriltpu_torch/csrc/align_shift.cu",
+        "replaces": f"{ALIGN_REPLACES} (XLA, no Pallas kernel)",
+        "launches": rec.align["launches"], "max_abs_err": rec.align["err"],
+        "shape": rec.align["shape"], "ms": rec.align["ms"],
+        "plain_ms": rec.align["plain_ms"], "plain": "align_frames_gather",
+        "bound_ms": rec.align["bound_ms"], "bound_by": "bytes", "bound": "hbm",
+        "library_ms": None}]}
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -8,14 +8,17 @@ device-resident (F, H, W) uint16 frame batch:
 1. ``compute_shifts``: one batched rfft2 phase correlation over the
    square registration selection of every frame;
 2. ``quality_estimate_batch``: PIPP quality on the same selections;
-3. ``align_frames_auto``: integer zero-fill shift of every frame;
+3. ``align_frames_auto``: integer zero-fill shift of every frame, on the
+   card one launch of the ``align_shift`` CUDA kernel;
 4. ``reject_stack``: the rejection's CUDA kernel (sort + clip + mean per
    pixel) plus the exact re-run of its degenerate pixels.
 
 With tracing on (``utils.timing``) a call is a ``register_and_stack``
 span over the stages' spans ``register.shifts``, ``register.quality``,
-``align.shift_read``, ``align.copy``, ``stack.reject`` and
-``result.to_host``, whatever functions implement them.
+``align.copy``, ``stack.reject`` and ``result.to_host``, whatever
+functions implement them (and ``align.shift_read`` before ``align.copy``
+on the CPU). On the card nothing between ``register.shifts`` and
+``result.to_host`` waits for the card.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from siriltpu_torch.ops.cuda.align_shift import align_shift
 from siriltpu_torch.ops.cuda.reject_stack import reject_stack
 from siriltpu_torch.ops.rejection import reject_and_mean
 from siriltpu_torch.ops.fftreg import _ref_fft, phase_correlate
@@ -118,10 +122,18 @@ def align_frames_slice(frames: torch.Tensor, sx: torch.Tensor,
 def align_frames_auto(frames: torch.Tensor, sx: torch.Tensor,
                       sy: torch.Tensor, margin: int = ALIGN_MARGIN
                       ) -> torch.Tensor:
-    """Slice form for shifts up to ``margin``, gather form beyond it (a
-    frame that has drifted that far is mostly zero fill)."""
-    # host sync: the choice needs max |shift| on the host (JAX decides on
-    # the device with lax.cond); the slice form reuses the shifts read here
+    """The zero-fill shift of :func:`align_frames_gather`. On the card,
+    the ``align_shift`` kernel: every frame in one launch, the shifts read
+    on the device, no host sync. Elsewhere the slice form for shifts up to
+    ``margin``, the gather form beyond it (a frame that has drifted that
+    far is mostly zero fill)."""
+    if frames.device.type == "cuda":
+        with span("align.copy", device=frames.device, form="kernel"):
+            return align_shift(frames.contiguous(),
+                               sx.to(torch.int32).contiguous(),
+                               sy.to(torch.int32).contiguous())
+    # host sync: the choice needs max |shift| on the host; the slice form
+    # reuses the shifts read here
     xs, ys, reach = _read_shifts(sx, sy)
     if reach <= margin:
         return _align_slice(frames, xs, ys)

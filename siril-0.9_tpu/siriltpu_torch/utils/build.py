@@ -27,9 +27,9 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-#: the kernels of the library: each has the C entries reject_<name>_u16
-#: (the launch) and reject_<name>_plan (its block, shared memory, scratch
-#: and occupancy)
+#: the rejection kernels of the library: each has the C entries
+#: reject_<name>_u16 (the launch) and reject_<name>_plan (its block, shared
+#: memory, scratch and occupancy). The library also has align_shift_u16.
 KERNELS = ("sigma", "median", "percentile", "sigmedian", "winsorized")
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -128,6 +128,9 @@ def library() -> ctypes.CDLL:
         # f, p, smem_limit, scratch_limit, out (6 int64)
         plan.argtypes = [i64, i64, i64, i64, ctypes.POINTER(i64)]
         plan.restype = ctypes.c_int
+    # src, sx, sy, out, f, h, w, stream (csrc/align_shift.cu)
+    lib.align_shift_u16.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr]
+    lib.align_shift_u16.restype = ctypes.c_int
     return lib
 
 

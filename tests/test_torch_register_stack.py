@@ -15,6 +15,7 @@ from siriltpu.testing.synth import make_sequence_frames  # noqa: E402
 from siriltpu_torch.pipelines import register_stack as trs  # noqa: E402
 from siriltpu_torch.utils.interop import (frames_from_numpy,  # noqa: E402
                                           u16_to_numpy)
+from siriltpu_torch.utils.timing import counters  # noqa: E402
 
 M = trs.ALIGN_MARGIN
 
@@ -23,7 +24,8 @@ M = trs.ALIGN_MARGIN
 @pytest.mark.parametrize("bound", [6, M, M + 30, 200])
 def test_align_matches_jax(form, bound):
     """Every align form equals JAX's gather align for shifts inside the
-    margin, at it, beyond it, and beyond the frame itself."""
+    margin, at it, beyond it, and beyond the frame itself. On the CPU no
+    form launches the align kernel."""
     f, h, w = 7, 40, 56
     rng = np.random.default_rng(bound)
     frames = rng.integers(0, 65536, (f, h, w)).astype(np.uint16)
@@ -34,8 +36,10 @@ def test_align_matches_jax(form, bound):
         jnp.asarray(frames), jnp.asarray(sx), jnp.asarray(sy)))
     fn = {"gather": trs.align_frames_gather, "slice": trs.align_frames_slice,
           "auto": trs.align_frames_auto}[form]
+    before = counters().get("align.launches", 0)
     got = fn(frames_from_numpy(frames, "cpu"), torch.from_numpy(sx),
              torch.from_numpy(sy))
+    assert counters().get("align.launches", 0) == before
     assert got.dtype == torch.uint16
     np.testing.assert_array_equal(u16_to_numpy(got), want)
 
