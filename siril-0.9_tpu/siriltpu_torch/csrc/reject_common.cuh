@@ -43,8 +43,8 @@
 // for such pixels; their mean and counters are the exact ones.
 //
 // Bit-exactness rules (each changes clip decisions if broken):
-// - the sd is exact integer sums of an 8-bit split of deviations from an
-//   anchor element, combined in float in the order of the JAX code; the
+// - the sd is exact integer sums of an 8-bit split of deviations from the
+//   set's upper middle value (x[lo + n/2] of a window), combined in float in the order of the JAX code; the
 //   library is built without fast math and with -fmad=false, so division
 //   and sqrt are IEEE and no product is fused into an add. A team adds its
 //   integer sums in any order: they are exact;

@@ -35,8 +35,10 @@
 // words), so a thread's own column and a warp reading one column across
 // its lanes both touch 32 different banks.
 //
-// The clip loop reads the median and the sd anchor x[lo + (n-1)/2] by
-// index and counts the flags with sigma_flags; siglow * sigma is a float
+// The clip loop reads the median and the sd anchor by index (the anchor is
+// the upper middle value x[lo + n/2], as _gsl_sd and SigmaStats take it:
+// at even n the float32 combine of a lower anchor rounds some sds apart)
+// and counts the flags with sigma_flags; siglow * sigma is a float
 // product. A pixel whose scan would hit the reference's mid-scan break is
 // frozen and flagged degenerate (Window::step); then the warp settles each
 // of its degenerate pixels in turn with exact_masked (reject_common.cuh),
@@ -60,7 +62,7 @@ __device__ __forceinline__ Result sigma_window(const C& x, int f, float siglow,
     const int32_t v2 = x[lo + n / 2];
     const float median = median_of(v1, v2);
     SdSums<Acc> sums;
-    for (int i = lo; i < hi; ++i) sums.add(static_cast<int32_t>(x[i]) - v1);
+    for (int i = lo; i < hi; ++i) sums.add(static_cast<int32_t>(x[i]) - v2);
     const float sigma = sums.sd(n);
     if (!win.step(sigma_flags(x, lo, hi, median, siglow * sigma, sighigh * sigma, 0))) break;
   }

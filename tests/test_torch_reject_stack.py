@@ -24,7 +24,9 @@ from siriltpu_torch.ops import rejection as trej  # noqa: E402
 from siriltpu_torch.ops.cuda import reject_stack as rs  # noqa: E402
 from siriltpu_torch.utils.build import KERNELS  # noqa: E402
 from siriltpu_torch.utils.interop import frames_from_numpy  # noqa: E402
+from siriltpu_torch.utils import timing  # noqa: E402
 from siriltpu_torch.utils.timing import counters  # noqa: E402
+from siriltpu_torch.verify import oracle  # noqa: E402
 
 PKG_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "siril-0.9_tpu")
@@ -183,6 +185,94 @@ def test_more_than_degen_k_degenerate_pixels_winsorized():
     for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
         np.testing.assert_array_equal(_ints(g), np.asarray(w).astype(np.int32),
                                       err_msg=name)
+
+
+#: A column of 100 values built so that the sd's anchor decides a sigma
+#: (3, 3) clip. About the upper middle value 1001 its deviations sum to 451
+#: and their squares to 51413: 100 * 51413 - 451**2 = 67**2 * 1100 - 1, so
+#: the exact 3 sd lies just under 67, the gap of the maximum 1067 above the
+#: median 1000. The one float32 combine reads 3 sd as 67.0 about the lower
+#: middle value 999 (1067 kept, mean 1006) and under 67 about the upper one
+#: (1067 rejected high, mean 1005, as Siril's float64 loop has it).
+ANCHOR_SPLIT = np.array([
+    955, 965, 969, 972, 973, 975, 975, 976, 977, 978, 979, 980,
+    981, 982, 982, 984, 984, 986, 986, 986, 987, 988, 989, 989,
+    990, 990, 991, 991, 991, 992, 994, 994, 994, 995, 996, 996,
+    997, 997, 997, 998, 999, 999, 999, 999, 999, 999, 999, 999,
+    999, 999, 1001, 1002, 1004, 1006, 1006, 1006, 1007, 1007, 1008, 1008,
+    1008, 1008, 1011, 1011, 1012, 1014, 1014, 1014, 1016, 1016, 1016, 1017,
+    1017, 1019, 1019, 1021, 1021, 1021, 1021, 1023, 1023, 1024, 1024, 1026,
+    1026, 1032, 1033, 1037, 1038, 1039, 1040, 1040, 1040, 1041, 1042, 1046,
+    1049, 1058, 1061, 1067], dtype=np.uint16)
+
+#: The 100 words that enter the sigma kernel at pixel 13397834 (row 3270,
+#: column 3914) of seed 3100000309 of the benchmark cell
+#: deepsky_mono_4k.resident, as the card aligned them. 1078 lies 77 above
+#: the median 1001, against 3 sd = 3 x 25.6667: about the lower middle
+#: value the kernel kept it (1007), about the upper one it is rejected
+#: high (1006), as in the masked loop and Siril's float64 loop.
+KNIFE_EDGE = np.array([
+    997, 995, 982, 1047, 997, 1009, 995, 1017, 1033, 988, 1020, 991,
+    1009, 993, 974, 1032, 980, 985, 979, 1021, 975, 980, 1056, 1054,
+    1009, 1026, 1053, 1006, 978, 977, 1023, 1038, 1019, 978, 999, 1015,
+    970, 979, 994, 1017, 975, 997, 1043, 1003, 1051, 982, 1020, 1017,
+    1044, 970, 1078, 987, 1004, 960, 1018, 1000, 1018, 964, 993, 1015,
+    1002, 1009, 1022, 1045, 1048, 972, 969, 1000, 987, 998, 1041, 990,
+    1012, 1030, 985, 1031, 984, 1027, 1038, 1049, 1015, 1047, 992, 1000,
+    993, 1053, 991, 992, 1016, 976, 1020, 976, 1006, 995, 983, 1049,
+    989, 1006, 993, 991], dtype=np.uint16)
+
+#: sigma (3, 3) columns on which the two middle values give the sd's
+#: anchor different clips: (column, mean, rejected low, rejected high),
+#: as the masked loop and Siril's loop decide them; in each the largest
+#: value is the one rejected high, and no pixel is degenerate
+ANCHOR_CASES = {"built": (ANCHOR_SPLIT, 1005, 0, 1),
+                "deepsky_3100000309": (KNIFE_EDGE, 1006, 0, 1)}
+
+
+def anchor_vals(case: str, device) -> torch.Tensor:
+    """The case's column in 40 pixels, each in its own order."""
+    col = ANCHOR_CASES[case][0]
+    rng = np.random.default_rng(40)
+    return frames_from_numpy(
+        np.stack([rng.permutation(col) for _ in range(40)], axis=1), device)
+
+
+def test_built_column_separates_the_two_anchors():
+    """The built column's first pass: 3 sd about the lower middle value is
+    67.0, which 1067 does not pass; about the upper one it is less."""
+    x = torch.from_numpy(ANCHOR_SPLIT.astype(np.int32))[:, None]
+    n = torch.tensor([100], dtype=torch.int32)
+    gap = torch.tensor(1067.0) - 0.5 * torch.tensor(999.0 + 1001.0)
+    three = torch.tensor(3.0)
+    lower = three * trej._sd_of_deviations(x - 999, n)[0]
+    upper = three * trej._sd_of_deviations(x - 1001, n)[0]
+    assert float(lower) == 67.0 and not bool(gap > lower)
+    assert bool(gap > upper)
+
+
+@pytest.mark.parametrize("case", sorted(ANCHOR_CASES))
+def test_sigma_anchor_cases(case):
+    """The window form anchors its sd on the upper middle value, as
+    ``_gsl_sd`` does: on these columns the plain kernel, the window form
+    and the masked loop give Siril's clips and mean, with no pixel left
+    to the exact re-run."""
+    col, mean, rejl, rejh = ANCHOR_CASES[case]
+    vals = anchor_vals(case, "cpu")
+    want = {"mean": mean, "degen": 0, "rejl": rejl, "rejh": rejh}
+    plain = dict(zip(("mean", "degen", "rejl", "rejh"),
+                     rs.reject_plain(vals, "sigma", 3.0, 3.0)))
+    window = dict(zip(("mean", "rejl", "rejh", "degen"),
+                      trej.reject_sigma_window(vals, 3.0, 3.0)))
+    masked = dict(zip(("mean", "rejl", "rejh"),
+                      trej.reject_and_mean(vals, "sigma_masked", (3.0, 3.0))))
+    for form, got in (("plain", plain), ("window", window), ("masked", masked)):
+        for name, g in got.items():
+            assert (_ints(g) == want[name]).all(), (form, name)
+    surv = oracle.reject_pixel(col, "sigma", (3.0, 3.0))
+    assert len(surv) == len(col) - rejl - rejh
+    assert int(surv.max()) < int(col.max())
+    assert int(np.floor(int(surv.astype(np.int64).sum()) / len(surv) + 0.5)) == mean
 
 
 #: (F, P, geomspace column every, sig): F in {5, 12, 25, 100}, and one case
@@ -384,6 +474,42 @@ def test_cuda_wrapper_matches_reject_and_mean(cuda_device, rejection):
     want = trej.reject_and_mean(vals, rejection, (lo, hi))
     for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
         np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ANCHOR_CASES))
+def test_cuda_sigma_anchor_cases(cuda_device, case):
+    """The sigma kernel on the anchor cases: Siril's clips and mean, and
+    no degenerate flag."""
+    _, mean, rejl, rejh = ANCHOR_CASES[case]
+    got = rs.reject_cuda(anchor_vals(case, cuda_device), "sigma", 3.0, 3.0)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("mean", "degen", "rejl", "rejh"), got,
+                          (mean, 0, rejl, rejh)):
+        assert (_ints(g) == w).all(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rejection", ["sigma", "winsorized"])
+def test_cuda_degenerate_counter(cuda_device, rejection):
+    """With tracing on, ``reject_stack`` counts the pixels its kernel
+    flagged degenerate as a sum on the card, with no host sync at the
+    launch; ``counters()`` reads it."""
+    name = f"reject.degenerate.{rejection}"
+    vals = frames_from_numpy(make_vals(25, 4096, degen_every=3), cuda_device)
+    lo, hi = SIGS[rejection]
+    want = int(rs.reject_cuda(vals, rejection, lo, hi)[1].sum())
+    assert want > 0
+    before = counters().get(name, 0)
+    timing.enable()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rs.reject_stack(vals, rejection, lo, hi)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        timing.disable()
+        timing.collect()
+    assert counters()[name] - before == want
 
 
 @pytest.mark.cuda

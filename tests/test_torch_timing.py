@@ -6,12 +6,15 @@ CPU only; a fake CUDA event shows that a span never waits for the card."""
 import math
 import threading
 import time
+from collections import Counter
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
+
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from siriltpu_torch.pipelines import register_stack as trs  # noqa: E402
 from siriltpu_torch.utils import timing  # noqa: E402
@@ -205,6 +208,48 @@ def test_counters():
         count("x")
     timing.reset()
     assert counters() == {} and collect() == []
+
+
+class _Ops(TorchDispatchMode):
+    """The aten operators dispatched inside the block, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        if name.startswith("aten."):
+            self.ops[name] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("rejection", ["sigma", "winsorized"])
+def test_degenerate_counter_only_while_tracing(rejection):
+    """``reject.degenerate.<rejection>`` counts the pixels the window form
+    flagged degenerate (at F = 4 every one) as one sum a call, kept as a
+    tensor until ``counters()`` reads it. Off, nothing is counted and the
+    stack runs the same operators less that sum."""
+    from siriltpu_torch.ops.cuda import reject_stack as rs
+
+    name = f"reject.degenerate.{rejection}"
+    vals = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 65536, (4, 50)).astype(np.int32)).to(torch.int16).view(torch.uint16)
+    timing.reset()
+    with _Ops() as off:
+        rs.reject_stack(vals, rejection, 2.0, 2.0)
+    assert name not in counters()
+    timing.enable()
+    with _Ops() as on:
+        rs.reject_stack(vals, rejection, 2.0, 2.0)
+    rs.reject_stack(vals, rejection, 2.0, 2.0)
+    timing.disable()
+    assert on.ops - off.ops == Counter({"aten.sum.default": 1})
+    assert not off.ops - on.ops
+    degen = rs.reject_plain(vals, rejection, 2.0, 2.0)[1]
+    assert int(degen.sum()) == 50
+    got = counters()[name]
+    assert type(got) is int and got == 2 * 50
 
 
 def test_spans_lie_on_the_profiler_clock():
