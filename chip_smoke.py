@@ -13,8 +13,9 @@ exits non-zero without printing a result:
    already built), print what ptxas says of each kernel entry's registers
    and spills (any local memory, or a source with no entry, fails the run),
    and the warps the winsorized kernel keeps resident per SM at F = 1000
-   (at least 16), the sigma kernel at F = 100 and the median, percentile
-   and sigmedian kernels at F = 50;
+   (its wires form, at least MIN_WARPS_F1000), with that entry's
+   registers, the sigma kernel at F = 100 and the median, percentile and
+   sigmedian kernels at F = 50;
 3. kernels vs plain: each of the five CUDA rejection kernels (sigma,
    median, percentile, sigmedian, winsorized) against its plain PyTorch
    version on the card, bit for bit, for F in {3, 5, 12, 25, 64, 100, 256,
@@ -50,10 +51,12 @@ exits non-zero without printing a result:
    with the block loop's time alone and what the exact re-run of the
    degenerate pixels costs inside the kernel; then register_and_stack on
    these frames, the planetary cell's shape (winsorized (3, 3)): one align
-   launch, its stack equal to the winsorized kernel over
-   align_frames_gather; and the align kernel timed as in phase 5. The
-   kernels line carries the align kernel's launches, words that differ,
-   and this shape's ms, align_frames_gather ms and bound;
+   launch and one winsorized launch in its wires form, its stack equal to
+   the winsorized kernel over align_frames_gather; and the align kernel
+   timed as in phase 5. The kernels line carries the align kernel's
+   launches, words that differ, and this shape's ms, align_frames_gather
+   ms and bound, and for the winsorized kernel, beside its ms at this
+   shape, its form, registers and resident warps per SM at F = 1000;
 8. the sequence path, in a temporary directory that is removed at the end:
    the frames of config 3 written as a mono 16-bit SER file with SerFile,
    opened with ser_sequence, registered with register_shift_dft on a
@@ -270,6 +273,7 @@ the last line is {"ok": true, "device": {...}}.
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -349,8 +353,14 @@ REPS = 3
 ALIGN_REPS = 20
 #: device-memory rate of one H100 SXM (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
-#: least warps the winsorized kernel keeps resident per SM at F = 1000
-MIN_WARPS_F1000 = 16
+#: least warps the winsorized kernel keeps resident per SM at F = 1000:
+#: its wires form, 8 warps a block, 4 blocks while its 32-wire entry takes
+#: at most 64 registers (57 with nvcc 12.8); fewer warps would leave the
+#: latency of its shuffles and warp sums less to hide behind
+MIN_WARPS_F1000 = 32
+#: the winsorized kernel's entry at F = 1000 (32 wires a lane, H = 16), as
+#: its mangled name holds it
+WIRES_F1000 = "winsorized_wiresILi16E"
 PALLAS = "siril-0.9_tpu/siriltpu/ops/pallas/reject_stack.py"
 #: first line of each kernel's branch of _make_kernel
 REPLACES = {"sigma": 797, "median": 255, "percentile": 271, "sigmedian": 297,
@@ -499,6 +509,9 @@ class Record:
         #: from align_frames_gather, and at the planetary shape (phase 7)
         #: its ms, align_frames_gather's ms and its bound
         self.align = {"launches": 0, "err": 0}
+        #: per kernel, the form, registers and resident warps of its launch
+        #: at the shape it is timed at, where reported
+        self.plan = {}
 
     def check(self, name: str, errs, what: str):
         self.err[name] = max(self.err[name], *errs)
@@ -511,6 +524,22 @@ class Record:
             self.launches[k] += n
         if launches[kernel] < 1:
             fail(f"{paths} did not launch the {kernel} kernel")
+
+
+def entry_registers(log) -> dict:
+    """Registers of each kernel entry, by its mangled name, as ptxas
+    reports them in ``log`` (its lines)."""
+    regs, entry = {}, None
+    for line in log:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            regs[entry] = int(m.group(1))
+            entry = None
+    return regs
 
 
 def reset_counts() -> None:
@@ -798,11 +827,14 @@ def phase7_align(rs, rec, card, frames, shifts):
     torch.cuda.synchronize()
     align_launched(rec, "phase7 register_and_stack")
     rec.count(kernel_launches(), "phase7 register_and_stack", "winsorized")
+    if counted("reject.form.winsorized.wires") != 1:
+        fail("phase7 register_and_stack did not stack in the winsorized wires form")
     want = rs.reject_stack(prs.align_frames_gather(frames, sx, sy).reshape(f, -1),
                            "winsorized", 3.0, 3.0)
     err = max_abs_diff(stacked.reshape(-1), want)
     print(f"phase7 register_and_stack [{card}] {f}x{h}x{w} winsorized (3, 3): "
-          f"align launches={counted('align.launches')}; stack vs winsorized "
+          f"align launches={counted('align.launches')}, winsorized launches in the "
+          f"wires form={counted('reject.form.winsorized.wires')}; stack vs winsorized "
           f"kernel over align_frames_gather max|diff|={err}", flush=True)
     rec.check("winsorized", [err], "phase7 register_and_stack")
     del stacked, want
@@ -3100,14 +3132,22 @@ def main(argv=None) -> int:
     plans = {k: rs.launch_plan(k, f) for k, f in (
         ("winsorized", 1000), ("sigma", 100), ("median", 50), ("percentile", 50),
         ("sigmedian", 50))}
+    wires = [n for e, n in entry_registers(log).items() if WIRES_F1000 in e]
     print(f"occupancy: resident warps per SM {({k: v.warps for k, v in plans.items()})} "
           f"(winsorized at F = 1000 with {plans['winsorized'].tile} pixels a block, "
+          f"form {plans['winsorized'].form}, {wires} registers, "
           f"sigma at F = 100, median, percentile and sigmedian at F = 50; pixels a block "
-          f"and shared memory {({k: (v.tile, v.smem) for k, v in plans.items()})})",
+          f"and shared memory {({k: (v.tile, v.smem) for k, v in plans.items()})}; "
+          f"forms {({k: v.form for k, v in plans.items()})})",
           flush=True)
     if plans["winsorized"].warps < MIN_WARPS_F1000:
         fail(f"winsorized keeps {plans['winsorized'].warps} warps per SM at F = 1000")
+    if plans["winsorized"].form != "wires" or len(wires) != 1:
+        fail(f"winsorized at F = 1000: form {plans['winsorized'].form}, "
+             f"registers {wires} of entry {WIRES_F1000}")
     rec = Record(build.KERNELS)
+    rec.plan["winsorized"] = {"form": plans["winsorized"].form, "registers": wires[0],
+                              "warps": plans["winsorized"].warps}
     # ---- 3. every kernel vs its plain version
     if wanted(3):
         phase3(rs, rec, dev)
@@ -3191,7 +3231,7 @@ def main(argv=None) -> int:
         "replaces": f"{PALLAS}:{REPLACES[k]}", "launches": rec.launches[k],
         "max_abs_err": rec.err[k], "ms": rec.ms[k][0], "plain_ms": rec.ms[k][1],
         "bound_ms": rec.bound[k], "bound_by": "bytes", "bound": "hbm",
-        "library_ms": rec.library[k]}
+        "library_ms": rec.library[k], **rec.plan.get(k, {})}
         for k in build.KERNELS] + [{
         "name": "align_shift", "route": "cuda",
         "source": "siril-0.9_tpu/siriltpu_torch/csrc/align_shift.cu",

@@ -27,8 +27,11 @@
 //   Percentile runs its whole clip on the registers; sigma and sigmedian
 //   write the sorted column to shared memory once for their clip passes;
 // - winsorized (reject_winsorized.cu): a warp a pixel (a team of 32
-//   lanes), which sorts the column together in shared memory and splits
-//   every fixed-point step and clip scan across its lanes.
+//   lanes). Up to F = 2048 the column lives in the warp's registers
+//   (warp wires below), sorted there by a warp-wide network and walked
+//   there by every fixed-point step and clip count; past that the warp
+//   sorts it together in shared memory and splits every step and clip
+//   scan across its lanes.
 //
 // Degenerate pixels: a pass whose scan would hit the reference's mid-scan
 // break (N - r <= 4, stacking.c:1684-1688) cannot be told by the window
@@ -491,8 +494,8 @@ __device__ __forceinline__ int32_t team_mean(const C& x, const Set& s, int n) {
   return round_mean<Acc>(warp_sum(sum), n);
 }
 
-// The winsorization fixed point of one outer pass, on the set's values of
-// the sorted column x, in the domain shifted by `anchor` (stacking.c:
+// The winsorization fixed point of one outer pass, on a set of n values of
+// a sorted column, in the domain shifted by `anchor` (stacking.c:
 // 1710-1740). It starts from the median and the sd of the set (the sd
 // anchored on its element n/2), then clamps to round_shift(med -+
 // 1.5f*sig) and measures the median and 1.134f * sd of the clamped values
@@ -501,11 +504,14 @@ __device__ __forceinline__ int32_t team_mean(const C& x, const Set& s, int n) {
 // is never stored: clamps compose (clamp(clamp(v, A, B), r0, r1) ==
 // clamp(v, clamp(A, r0, r1), clamp(B, r0, r1))), so after any number of
 // steps it is clamp(x, A, B) with two bounds.
-template <typename Acc, class C, class Set>
-__device__ __forceinline__ void winsor_converge(const C& x, const Set& s, int n, int32_t anchor, float& med,
-                                float& sig) {
-  const int k1 = s.kth((n - 1) / 2), k2 = s.kth(n / 2);
-  const int32_t x1 = x[k1], x2 = x[k2];
+//
+// x1 and x2 are the set's elements (n-1)/2 and n/2; sd(A, B, a) is the sd
+// of clamp(v, A, B) over the set's values v, anchored on a: a team's exact
+// sums, on a column in memory (winsor_converge) or in registers
+// (winsor_wires in reject_winsorized.cu).
+template <class Sd>
+__device__ __forceinline__ void winsor_fixed_point(int32_t x1, int32_t x2, int32_t anchor, Sd sd,
+                                                   float& med, float& sig) {
   const float lo_clip = -static_cast<float>(anchor);
   const float hi_clip = 65535.0f - static_cast<float>(anchor);
   // round_shift of the JAX code, back in the original domain
@@ -516,7 +522,7 @@ __device__ __forceinline__ void winsor_converge(const C& x, const Set& s, int n,
     return static_cast<int32_t>(r) + anchor;
   };
   med = median_of(x1 - anchor, x2 - anchor);
-  sig = team_sd<Acc>(s, n, x2, [&](int i) { return static_cast<int32_t>(x[i]); });
+  sig = sd(0, 65535, x2);
   int32_t A = 0, B = 65535;
   for (int it = 0; it < kMaxIters; ++it) {
     const int32_t r0 = bound(med - 1.5f * sig);
@@ -525,13 +531,24 @@ __device__ __forceinline__ void winsor_converge(const C& x, const Set& s, int n,
     B = clamp_i(B, r0, r1);
     const int32_t w1 = clamp_i(x1, A, B), w2 = clamp_i(x2, A, B);
     const float med_new = median_of(w1 - anchor, w2 - anchor);
-    const float sig_new =
-        1.134f * team_sd<Acc>(s, n, w2, [&](int i) { return clamp_i(x[i], A, B); });
+    const float sig_new = 1.134f * sd(A, B, w2);
     const bool conv = sig <= 0.0f || fabsf(sig_new - sig) / fmaxf(sig, 1e-30f) <= 0.0005f;
     med = med_new;
     sig = sig_new;
     if (conv) break;
   }
+}
+
+// The fixed point on the set's values of the sorted column x in memory.
+template <typename Acc, class C, class Set>
+__device__ __forceinline__ void winsor_converge(const C& x, const Set& s, int n, int32_t anchor,
+                                                float& med, float& sig) {
+  winsor_fixed_point(
+      x[s.kth((n - 1) / 2)], x[s.kth(n / 2)], anchor,
+      [&](int32_t A, int32_t B, int32_t a) {
+        return team_sd<Acc>(s, n, a, [&](int i) { return clamp_i(x[i], A, B); });
+      },
+      med, sig);
 }
 
 // Validity mask and the two rank buffers of one warp's exact pass, each
@@ -652,6 +669,152 @@ __device__ __forceinline__ Result exact_masked(const C& x, int f, Masks m, float
   return {team_mean<Acc>(x, set, n), 1, rl, rh};
 }
 
+// ------------------------------------------------------------ warp wires
+//
+// A column of F <= 64 * H values held by a warp, H registers a lane, two
+// uint16 wires a register, pads at 65535: lane l holds the run of wires
+// 2Hl .. 2Hl + 2H - 1, wire 2Hl + w in half w / H of register w % H (the
+// layout of Wires, one run a lane). Sorted, the wires are the column in
+// ascending order. Every loop over the registers has a constant trip count
+// and is unrolled, so every register index is a compile-time constant.
+// Every function below is called by all 32 lanes of a warp, and a value it
+// returns is the same in every lane.
+
+// The first stage of the merge of sorted runs of m + 1 lanes (m + 1 a
+// power of two, at least 2): wire g against wire g ^ (2H(m + 1) - 1), the
+// all-ascending flip of sort_column. Wire w of a lane meets wire 2H - 1 - w
+// of lane ^ m: register r meets the partner's register H - 1 - r with its
+// halves swapped. The lane in the lower half of its block keeps the minima.
+template <int H>
+__device__ __forceinline__ void lanes_flip(uint32_t (&v)[H], int m) {
+  const bool keep_min = (lane_id() & ((m + 1) >> 1)) == 0;
+#pragma unroll
+  for (int r = 0; r < H / 2; ++r) {
+    const int s = H - 1 - r;
+    // both of a pair are read before either is written
+    const uint32_t a = __byte_perm(__shfl_xor_sync(kFull, v[s], m), 0u, 0x1032);
+    const uint32_t b = __byte_perm(__shfl_xor_sync(kFull, v[r], m), 0u, 0x1032);
+    v[r] = keep_min ? __vminu2(v[r], a) : __vmaxu2(v[r], a);
+    v[s] = keep_min ? __vminu2(v[s], b) : __vmaxu2(v[s], b);
+  }
+}
+
+// A half-cleaner stage across lanes: wire g against wire g ^ (2Hm), the
+// same register of lane ^ m; the lower lane keeps the minima.
+template <int H>
+__device__ __forceinline__ void lanes_half(uint32_t (&v)[H], int m) {
+  const bool keep_min = (lane_id() & m) == 0;
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+    const uint32_t o = __shfl_xor_sync(kFull, v[r], m);
+    v[r] = keep_min ? __vminu2(v[r], o) : __vmaxu2(v[r], o);
+  }
+}
+
+// Ascending sort of the warp's 64H wires: each lane's run by the register
+// network of BitonicStage, then the merges of runs of 2, 4, ..., 32 lanes,
+// each a flip across lanes, the half-cleaners that cross lanes (shuffles)
+// and those inside a lane (BitonicStage at K == W, all ascending).
+template <int H>
+__device__ __forceinline__ void warp_sort(uint32_t (&v)[H]) {
+  static_assert(H >= 2 && (H & (H - 1)) == 0, "a power of two of registers, two at least");
+  constexpr int W = 2 * H;
+  BitonicStage<W, 2, 1>::run(v);
+#pragma unroll
+  for (int lanes = 2; lanes <= 32; lanes <<= 1) {
+    lanes_flip(v, lanes - 1);
+#pragma unroll
+    for (int m = lanes / 4; m >= 1; m >>= 1) lanes_half(v, m);
+    BitonicStage<W, W, H>::run(v);
+  }
+}
+
+// Put `fill` in every wire outside the window [lo, hi) of the sorted
+// column; the wires inside keep their values.
+template <int H>
+__device__ __forceinline__ void narrow(uint32_t (&v)[H], int lo, int hi, int32_t fill) {
+  const int g0 = lane_id() * 2 * H;
+  const uint32_t ff = static_cast<uint32_t>(fill) * 0x10001u;
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+    const int a = g0 + r, b = g0 + r + H;
+    const uint32_t keep =
+        (a >= lo && a < hi ? 0x0000ffffu : 0u) | (b >= lo && b < hi ? 0xffff0000u : 0u);
+    v[r] = (v[r] & keep) | (ff & ~keep);
+  }
+}
+
+// The exact sum of every wire of the warp.
+template <int H>
+__device__ __forceinline__ int32_t wire_total(const uint32_t (&v)[H]) {
+  uint32_t s = 0;
+#pragma unroll
+  for (int r = 0; r < H; ++r) s = __dp2a_lo(v[r], 0x0101u, s);
+  return static_cast<int32_t>(__reduce_add_sync(kFull, s));
+}
+
+// Exact sums of clamp(v, A, B) - a over every wire of the warp (A <= B),
+// two wires a register: the clamp and |d| by 16-bit SIMD (max - min has no
+// borrow across the halves), the 8-bit split products by __dp4a, the sum by
+// __dp2a. A wire whose value clamps to a adds 0: narrow() fills the wires
+// outside a window with its element n/2, which clamps to the step's anchor.
+// int32 holds them: 64H <= 2048 wires of at most 65535.
+template <int H>
+__device__ __forceinline__ SdSums<int32_t> wire_sums(const uint32_t (&v)[H], int32_t A, int32_t B,
+                                                     int32_t a) {
+  const uint32_t aa = static_cast<uint32_t>(A) * 0x10001u;
+  const uint32_t bb = static_cast<uint32_t>(B) * 0x10001u;
+  const uint32_t cc = static_cast<uint32_t>(a) * 0x10001u;
+  uint32_t sc = 0, hh = 0, hl = 0, ll = 0;
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+    const uint32_t c = __vmaxu2(__vminu2(v[r], bb), aa);
+    const uint32_t d = __vmaxu2(c, cc) - __vminu2(c, cc);
+    const uint32_t l8 = d & 0x00ff00ffu, h8 = __byte_perm(d, 0u, 0x4341);
+    ll = __dp4a(l8, l8, ll);
+    hh = __dp4a(h8, h8, hh);
+    hl = __dp4a(l8, h8, hl);
+    sc = __dp2a_lo(c, 0x0101u, sc);
+  }
+  SdSums<int32_t> s;
+  s.s1 = static_cast<int32_t>(__reduce_add_sync(kFull, sc)) - 64 * H * a;
+  s.shh = static_cast<int32_t>(__reduce_add_sync(kFull, hh));
+  s.shl = static_cast<int32_t>(__reduce_add_sync(kFull, hl));
+  s.sll = static_cast<int32_t>(__reduce_add_sync(kFull, ll));
+  return s;
+}
+
+// sigma_flags on the window of n values of the sorted wires, whose other
+// wires narrow() filled with `fill`: each lane counts its wires that meet
+// each predicate, the warp adds the counts, and the 64H - n filled wires'
+// share comes off. Both predicates are monotone in v, so on a sorted
+// column the counts are the lengths of the prefix and the suffix that
+// sigma_flags scans. t = v - shift as a float, exactly as
+// static_cast<float>(v - shift): 2^23 + v by its bits, less 2^23 + shift
+// (both exact, and so is their difference).
+template <int H>
+__device__ __forceinline__ Flags wire_flags(const uint32_t (&v)[H], int n, int32_t fill, float med,
+                                            float thr_low, float thr_high, int32_t shift) {
+  const float k = 8388608.0f + static_cast<float>(shift);
+  auto low = [&](float t) { return med - t > thr_low; };
+  auto high = [&](float t) { return t - med > thr_high; };
+  int nl = 0, nh = 0;
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float t = __int_as_float(__byte_perm(v[r], 0x4b000000u, half ? 0x7432 : 0x7410)) - k;
+      nl += low(t);
+      nh += high(t);
+    }
+  }
+  const float tf = static_cast<float>(fill - shift);
+  const int out = 64 * H - n;
+  return {static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(nl))) - (low(tf) ? out : 0),
+          static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(nh))) -
+              (high(tf) ? out : 0)};
+}
+
 // ----------------------------------------------------------- launching
 
 using KernelFn = void (*)(const uint16_t*, int64_t, uint16_t*, Outputs, int, int64_t, float,
@@ -660,13 +823,18 @@ using KernelFn = void (*)(const uint16_t*, int64_t, uint16_t*, Outputs, int, int
 // How a kernel runs at F frames over p pixels: its entry, its block
 // (threads and the pixels they own), its dynamic shared memory a block and
 // its device-memory scratch a launch, in bytes (0 off the scratch path);
-// kernel == nullptr for a tile the kernel does not take. Each kernel's plan
-// function, Plan(f, tile, scratch, p), is the one place its layout is
-// written down: the launch and the plan query both read it.
+// kernel == nullptr for a tile the kernel does not take; and its form.
+// Each kernel's plan function, Plan(f, tile, scratch, p), is the one place
+// its layout is written down: the launch and the plan query both read it.
+// Where a launch sorts its columns: in registers, in shared memory, or in
+// the device-memory scratch (plan_query sets that one for the scratch path).
+enum Form : int { kShared = 0, kWires = 1, kScratch = 2 };
+
 struct Plan {
   KernelFn kernel;
   int threads, pixels;
   int64_t smem, scratch;
+  Form form = kShared;
 };
 
 // Pixels a block of the thread-a-pixel kernels, largest first (0 ends).
@@ -741,7 +909,7 @@ Plan wire_plan(int64_t f, int64_t tile, bool scratch, int64_t p) {
   const KernelFn k = f <= 32   ? wire_kernel<Body, 32>
                      : f <= 64 ? wire_kernel<Body, 64>
                                : wire_kernel<Body, 128>;
-  return {k, t, t, Body::kColumn ? f * (tile + 2) * 2 : 0, 0};
+  return {k, t, t, Body::kColumn ? f * (tile + 2) * 2 : 0, 0, kWires};
 }
 
 // Launch a plan over p pixels on `stream`. vals is (F, p) with row stride
@@ -786,9 +954,9 @@ inline int resident_warps(const Plan& pl) {
 // memory (< 0: the 227 KB a block may use); where none fits, the scratch
 // path at the first tile, with the pixels a launch cut to whole blocks
 // until a launch's scratch fits in scratch_limit bytes (one block at
-// least). out[6]: tile, scratch path (0 or 1), pixels a launch, shared
-// memory a block, scratch a launch (bytes), warps resident on one SM.
-// Returns a cudaError_t.
+// least). out[7]: tile, scratch path (0 or 1), pixels a launch, shared
+// memory a block, scratch a launch (bytes), warps resident on one SM, and
+// the Form. Returns a cudaError_t.
 template <class PlanFn>
 inline int plan_query(PlanFn plan, const int* tiles, int64_t f, int64_t p, int64_t smem_limit,
                       int64_t scratch_limit, int64_t* out) {
@@ -813,8 +981,9 @@ inline int plan_query(PlanFn plan, const int* tiles, int64_t f, int64_t p, int64
   }
   const int warps = resident_warps(pl);
   if (warps < 0) return -warps;
-  const int64_t got[6] = {tile, scratch ? 1 : 0, chunk, pl.smem, pl.scratch, warps};
-  for (int i = 0; i < 6; ++i) out[i] = got[i];
+  const int64_t got[7] = {tile, scratch ? 1 : 0, chunk, pl.smem, pl.scratch, warps,
+                          scratch ? kScratch : pl.form};
+  for (int i = 0; i < 7; ++i) out[i] = got[i];
   return cudaSuccess;
 }
 

@@ -91,7 +91,7 @@ Plan median_plan(int64_t f, int64_t tile, bool scratch, int64_t p) {
   const KernelFn k = f <= 32   ? median_kernel<32>
                      : f <= 64 ? median_kernel<64>
                                : median_kernel<128>;
-  return {k, t, t, 0, 0};
+  return {k, t, t, 0, 0, kWires};
 }
 
 }  // namespace

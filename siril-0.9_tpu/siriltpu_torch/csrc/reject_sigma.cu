@@ -141,7 +141,7 @@ Plan sigma_plan(int64_t f, int64_t tile, bool scratch, int64_t p) {
                      : f <= 64  ? sigma_kernel<64, false, int32_t>
                      : f <= 128 ? sigma_kernel<128, false, int32_t>
                                 : sigma_kernel<0, false, int32_t>;
-  return {k, t, t, smem, 0};
+  return {k, t, t, smem, 0, f <= 128 ? kWires : kShared};
 }
 
 }  // namespace

@@ -9,20 +9,24 @@ JAX wrapper does after its kernel. Here the kernels do it themselves: the
 warp that owns a degenerate pixel runs the reference's masked loop on the
 sorted column it holds (``exact_masked`` in ``csrc/reject_common.cuh``).
 So a CUDA stack is one launch per span of pixels and no host sync. The
-launches are counted (``utils.timing``, ``reject.launches.<kernel>``), and
-with tracing on a stack is a ``stack.reject`` span and its degenerate
-pixels are counted too (``reject.degenerate.<rejection>``, summed on the
-device).
+launches are counted (``utils.timing``, ``reject.launches.<kernel>``, and
+by the form they took, ``reject.form.<kernel>.<form>``), and with tracing
+on a stack is a ``stack.reject`` span that carries that form (``plain``
+on the CPU route) and its degenerate pixels are counted too
+(``reject.degenerate.<rejection>``, summed on the device).
 
 How the kernels own pixels (the C plans, ``csrc/reject_<name>.cu``):
 median gives each pixel a thread and its column a stride of shared
 memory; sigma, percentile and sigmedian do so too, but sort a column of
 F <= 128 in registers (percentile then needs no shared memory at all);
-winsorized gives each pixel a warp, ``tile`` pixels a block. Each
-kernel's C plan is the one place its layout is written down:
-``launch_plan`` asks it for the largest tile whose shared memory fits in
-the 227 KB a block may use, or, where none fits, for the device-memory
-scratch copy the kernel works on instead, so every F runs on the card.
+winsorized gives each pixel a warp, ``tile`` pixels a block, and up to
+F = 2048 keeps the column in the warp's registers. Each kernel's C plan
+is the one place its layout is written down: ``launch_plan`` asks it for
+the largest tile whose shared memory fits in the 227 KB a block may use,
+or, where none fits, for the device-memory scratch copy the kernel works
+on instead, so every F runs on the card. The plan names the form a
+launch takes: ``wires`` (the column sorted in registers), ``shared`` (in
+shared memory) or ``scratch``.
 
 A CUDA tensor always goes to its kernel, and a failed build or launch
 raises. A CPU tensor goes to the kernel's plain version.
@@ -49,6 +53,8 @@ SMEM_LIMIT = None
 #: bytes of device-memory scratch one launch may use; more pixels run in
 #: further launches
 SCRATCH_BYTES = 1 << 30
+#: the forms of a launch, by the code its C plan reports
+FORMS = ("shared", "wires", "scratch")
 #: the window form and the exact masked loop of the rejections whose
 #: kernels settle degenerate pixels
 _WINDOWED = {"sigma": (reject_sigma_window, reject_sigma),
@@ -66,6 +72,7 @@ class Plan(NamedTuple):
     smem: int           # dynamic shared memory of a block, bytes
     scratch_bytes: int  # device-memory scratch of one launch, bytes
     warps: int          # warps of the kernel resident on one SM
+    form: str           # where the column is sorted: one of FORMS
 
 
 def launch_plan(rejection: str, f: int, p: int = 1) -> Plan:
@@ -76,12 +83,12 @@ def launch_plan(rejection: str, f: int, p: int = 1) -> Plan:
 
     if rejection not in KERNELS:
         raise ValueError(f"no rejection kernel {rejection!r}")
-    out = (ctypes.c_int64 * 6)()
+    out = (ctypes.c_int64 * 7)()
     rc = getattr(library(), f"reject_{rejection}_plan")(
         f, p, -1 if SMEM_LIMIT is None else SMEM_LIMIT, SCRATCH_BYTES, out)
     if rc != 0:
         raise RuntimeError(f"reject_{rejection}_plan failed: cudaError_t {rc}")
-    return Plan(out[0], bool(out[1]), *out[2:])
+    return Plan(out[0], bool(out[1]), *out[2:6], FORMS[out[6]])
 
 
 def _check(vals: torch.Tensor, rejection: str):
@@ -126,6 +133,12 @@ def reject_cuda(vals: torch.Tensor, rejection: str, siglow: float,
                 sighigh: float):
     """Launch a CUDA rejection kernel on the current stream: (mean uint16,
     degen int32, rejl int32, rejh int32), each (P,). Asynchronous."""
+    return _launch(vals, rejection, siglow, sighigh)[0]
+
+
+def _launch(vals: torch.Tensor, rejection: str, siglow: float,
+            sighigh: float):
+    """``reject_cuda``'s outputs and the plan it launched."""
     from siriltpu_torch.utils.build import library
 
     _check(vals, rejection)
@@ -158,7 +171,8 @@ def reject_cuda(vals: torch.Tensor, rejection: str, siglow: float,
                                    f"cudaError_t {rc}")
             launched += 1
     count(f"reject.launches.{rejection}", launched)
-    return mean.view(torch.uint16), degen, rejl, rejh
+    count(f"reject.form.{rejection}.{plan.form}", launched)
+    return (mean.view(torch.uint16), degen, rejl, rejh), plan
 
 
 def reject_stack(vals: torch.Tensor, rejection: str, siglow: float,
@@ -182,11 +196,14 @@ def reject_stack(vals: torch.Tensor, rejection: str, siglow: float,
     slower. The CUDA route makes no host sync."""
     siglow, sighigh = float(siglow), float(sighigh)
     with span("stack.reject", device=vals.device, shape=tuple(vals.shape),
-              rejection=rejection):
+              rejection=rejection) as sp:
         if vals.device.type == "cuda":
-            mean, degen, rejl, rejh = reject_cuda(vals, rejection, siglow, sighigh)
+            (mean, degen, rejl, rejh), plan = _launch(vals, rejection, siglow,
+                                                      sighigh)
+            sp.set(form=plan.form)
         elif vals.device.type == "cpu":
             mean, degen, rejl, rejh = reject_plain(vals, rejection, siglow, sighigh)
+            sp.set(form="plain")
         else:
             raise ValueError(f"no rejection kernel for device {vals.device}")
         if rejection in _WINDOWED and enabled():

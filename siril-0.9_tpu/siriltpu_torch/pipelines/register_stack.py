@@ -148,7 +148,7 @@ def stack_rejected(flat: torch.Tensor, rejection: str, sig) -> torch.Tensor:
         return reject_stack(flat, rejection, float(sig[0]), float(sig[1]))
     # no kernel (none, sigma_masked, linearfit): plain PyTorch on the device
     with span("stack.reject", device=flat.device, shape=tuple(flat.shape),
-              rejection=rejection):
+              rejection=rejection, form="plain"):
         return reject_and_mean(flat, rejection, sig)[0]
 
 

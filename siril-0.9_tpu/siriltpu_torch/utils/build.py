@@ -125,7 +125,7 @@ def library() -> ctypes.CDLL:
                        f32, f32, ptr]
         fn.restype = ctypes.c_int
         plan = getattr(lib, f"reject_{name}_plan")
-        # f, p, smem_limit, scratch_limit, out (6 int64)
+        # f, p, smem_limit, scratch_limit, out (7 int64)
         plan.argtypes = [i64, i64, i64, i64, ctypes.POINTER(i64)]
         plan.restype = ctypes.c_int
     # src, sx, sy, out, f, h, w, stream (csrc/align_shift.cu)

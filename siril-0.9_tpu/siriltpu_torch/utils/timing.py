@@ -26,8 +26,10 @@ under them: ``register_and_stack``, ``register.shifts``,
 ``global.wait``, ``global.starfind``, ``global.match``, ``global.warp``,
 ``global.copy``, ``global.write``; ``ecc.read``, ``ecc.device``,
 ``ecc.quality``. Counters: ``reject.launches.<kernel>``,
-``stack.blocks`` (row blocks a streaming stack read from the files),
-``linearfit.knife``; and, while tracing is on only,
+``reject.form.<rejection>.<form>`` (launches of a kernel in each form:
+``wires``, ``shared`` or ``scratch``), ``stack.blocks`` (row blocks a
+streaming stack read from the files), ``linearfit.knife``; and, while
+tracing is on only,
 ``reject.degenerate.<rejection>`` (pixels a window kernel flagged
 degenerate and the exact masked loop settled), a sum the device keeps
 until ``counters()`` reads it.
@@ -135,6 +137,11 @@ class Span:
     def seconds(self) -> float:
         return (self.end_ns - self.start_ns) * 1e-9
 
+    def set(self, **attrs) -> None:
+        """Add attributes known only once the span is open (the form a
+        launch took)."""
+        self.attrs.update(attrs)
+
     def __enter__(self):
         stack = _stack()
         up = stack[-1] if stack else self._adopt
@@ -170,6 +177,9 @@ class _Off:
 
     def __exit__(self, *exc):
         return False
+
+    def set(self, **attrs) -> None:
+        pass
 
 
 _OFF = _Off()

@@ -192,7 +192,8 @@ def test_cuda_align_auto_one_launch_no_sync(cuda_device):
     assert launches() == before + 1
     assert [(s.name, s.attrs) for s in timing.collect()] == [
         ("align.copy", {"form": "kernel"}),
-        ("stack.reject", {"shape": (f, h * w), "rejection": "winsorized"})]
+        ("stack.reject", {"shape": (f, h * w), "rejection": "winsorized",
+                          "form": "wires"})]
     np.testing.assert_array_equal(u16_to_numpy(aligned), np_align(host, sx, sy))
 
 

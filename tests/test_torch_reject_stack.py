@@ -28,8 +28,8 @@ from siriltpu_torch.utils import timing  # noqa: E402
 from siriltpu_torch.utils.timing import counters  # noqa: E402
 from siriltpu_torch.verify import oracle  # noqa: E402
 
-PKG_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "siril-0.9_tpu")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_ROOT = os.path.join(REPO, "siril-0.9_tpu")
 
 
 def make_vals(f: int, p: int, seed: int = 0, degen_every: int = 31) -> np.ndarray:
@@ -305,6 +305,30 @@ def test_reject_plain_matches_jax_reject_and_mean(rejection, F, P, every, sig):
                                       err_msg=name)
 
 
+@pytest.mark.parametrize("rejection", KERNELS)
+def test_cpu_route_span_reports_form_plain(rejection):
+    """On the CPU route the ``stack.reject`` span names the form
+    ``plain``, and no kernel form is counted (``reject.form.*`` counts
+    launches on the card only)."""
+    vals = frames_from_numpy(make_vals(25, 64), "cpu")
+    lo, hi = SIGS[rejection]
+
+    def forms():
+        return {k: v for k, v in counters().items() if k.startswith("reject.form.")}
+
+    before = forms()
+    timing.collect()
+    timing.enable()
+    try:
+        rs.reject_stack(vals, rejection, lo, hi)
+    finally:
+        timing.disable()
+    spans = [s for s in timing.collect() if s.name == "stack.reject"]
+    assert [s.attrs for s in spans] == [
+        {"shape": (25, 64), "rejection": rejection, "form": "plain"}]
+    assert forms() == before
+
+
 def test_wrapper_rejects_bad_input():
     with pytest.raises(TypeError):
         rs.reject_stack(torch.zeros((5, 8), dtype=torch.int32), "sigma", 3.0, 3.0)
@@ -385,6 +409,12 @@ CUDA_CASES = ([(r, f) for r in KERNELS for f in CASE_FS]
               + [("winsorized", 2000)])
 
 
+#: least warps the winsorized kernel keeps resident per SM at F = 1000:
+#: the wires form's 8-warp blocks, 4 to an SM (chip_smoke.py holds the
+#: same floor)
+MIN_WARPS_F1000 = 32
+
+
 def launched(kernel: str) -> int:
     """The kernel's launches counted so far in this process."""
     return counters().get(f"reject.launches.{kernel}", 0)
@@ -439,9 +469,17 @@ def test_cuda_launch_plan(cuda_device):
         assert rs.launch_plan(rejection, 129).smem == 129 * 128 * 2
     assert rs.launch_plan("sigmedian", 50).smem == 50 * 130 * 2
     assert tile("sigma", 1000) == 64
-    # winsorized: a warp a pixel, 8 pixels a block while they fit
+    # winsorized: a warp a pixel, 8 pixels a block while they fit; the
+    # column in the warp's registers up to F = 2048, past it in shared
+    # memory
     assert tile("winsorized", 1000) == 8
     assert tile("winsorized", 14000) == 4
+    for f in (1, 1000, 2048):
+        assert rs.launch_plan("winsorized", f).form == "wires", f
+    assert rs.launch_plan("winsorized", 2049).form == "shared"
+    # sigma sorts in registers up to F = 128
+    assert rs.launch_plan("sigma", 128).form == "wires"
+    assert rs.launch_plan("sigma", 129).form == "shared"
     # past the shared-memory bound the kernels run on a device-memory
     # scratch copy: no F is refused
     assert tile("sigma", 3399) == 32
@@ -449,8 +487,10 @@ def test_cuda_launch_plan(cuda_device):
     assert tile("median", 3632) == 32
     assert tile("median", 3633) is None
     assert tile("winsorized", 97000) == 1
+    assert rs.launch_plan("winsorized", 97000).form == "shared"
     assert tile("winsorized", 98000) is None
-    assert rs.launch_plan("winsorized", 1000).warps >= 16
+    assert rs.launch_plan("winsorized", 98000).form == "scratch"
+    assert rs.launch_plan("winsorized", 1000).warps >= MIN_WARPS_F1000
 
 
 @pytest.mark.cuda
@@ -532,3 +572,93 @@ def test_cuda_sigmedian_first_pass_exits(cuda_device, flags, F):
         assert (nflag >= F).all()
     else:
         assert (nflag == 0).all()
+
+
+#: winsorized F across the borders of its wires form (64H wires a warp,
+#: H = 2, 4, ..., 32: F up to 128, 256, 512, 1024 and 2048) and just past
+#: it, where the shared form takes over
+WIRE_FS = (33, 64, 65, 100, 128, 129, 256, 257, 511, 512, 513, 999, 1000,
+           1024, 1025, 2047, 2048, 2049)
+#: the columns held to the plain version at each of them: make_vals's
+#: noise and outliers; columns of one value; zero fill and saturation;
+#: knife edges (geomspace columns, each in its own order, whose passes
+#: freeze with N - r <= 4: the exact re-run runs from the wires)
+WIRE_KINDS = ("random", "equal", "fill", "knife")
+
+
+def wire_columns(kind: str, f: int, p: int) -> np.ndarray:
+    rng = np.random.default_rng(f)
+    if kind == "random":
+        return make_vals(f, p)
+    if kind == "equal":
+        level = rng.integers(0, 65536, p)
+        level[:3] = (0, 65535, 1000)
+        return np.broadcast_to(level.astype(np.uint16), (f, p)).copy()
+    if kind == "fill":
+        v = np.clip(rng.normal(1000, 10, (f, p)), 0, 65535).astype(np.uint16)
+        v[:, 0::4] = 0
+        v[:, 1::4] = 65535
+        v[:, 2::4] = np.where(rng.random((f, v[:, 2::4].shape[1])) < 0.5, 0, 65535)
+        # a drifted frame's zero fill: up to a tenth of a column at 0
+        v[:, 3::4][rng.random((f, v[:, 3::4].shape[1])) < 0.1] = 0
+        return v
+    top = rng.integers(20000, 65536, p)
+    return rng.permuted(np.geomspace(1, top, f).astype(np.uint16), axis=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", WIRE_KINDS)
+@pytest.mark.parametrize("F", WIRE_FS)
+def test_cuda_winsorized_wires_matches_plain(cuda_device, F, kind):
+    """The wires form (the column sorted and walked in its warp's
+    registers) at F across its borders, and the shared form just past it:
+    mean, degenerate flag and both counters equal the plain version's,
+    and the launch is counted under its form."""
+    p = 1024 + 77
+    vals = frames_from_numpy(wire_columns(kind, F, p), cuda_device)
+    form = "wires" if F <= 2048 else "shared"
+    assert rs.launch_plan("winsorized", F, p).form == form
+    name = f"reject.form.winsorized.{form}"
+    before = counters().get(name, 0)
+    got = rs.reject_cuda(vals, "winsorized", 3.0, 3.0)
+    torch.cuda.synchronize()
+    assert counters()[name] == before + 1
+    want = rs.reject_plain(vals, "winsorized", 3.0, 3.0)
+    for label, g, w in zip(("mean", "degen", "rejl", "rejh"), got, want):
+        np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=label)
+    if kind == "knife":
+        assert int(got[1].sum()) > 0, "the knife columns must run the exact re-run"
+
+
+@pytest.mark.cuda
+def test_cuda_winsorized_planetary_frames(cuda_device):
+    """The planetary cell's own sequence (the benchmark's generator and
+    configuration, one seed): 1000 frames of 480 x 640 aligned on the
+    card, stacked by the wires form in one launch, equal to the plain
+    version on all 307200 pixels."""
+    import importlib.util
+    import json
+
+    from siriltpu_torch.pipelines.register_stack import align_frames_auto
+
+    spec = importlib.util.spec_from_file_location(
+        "portbench_frames", os.path.join(REPO, "portbench", "core", "frames.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    with open(os.path.join(REPO, "portbench", "configs",
+                           "planetary_vga_1000.json")) as fh:
+        config = json.load(fh)
+    frames, shifts = gen.make_frames(config, 3190001901, cuda_device)
+    sx, sy = (torch.from_numpy(np.ascontiguousarray(shifts[:, i])).to(cuda_device)
+              for i in (0, 1))
+    flat = align_frames_auto(frames, sx, sy).reshape(config["frames"], -1)
+    lo, hi = config["sig"]
+    assert rs.launch_plan("winsorized", *flat.shape).form == "wires"
+    got = rs.reject_cuda(flat, "winsorized", lo, hi)
+    torch.cuda.synchronize()
+    chunk = 1 << 16
+    for a in range(0, flat.shape[1], chunk):
+        want = rs.reject_plain(flat[:, a:a + chunk], "winsorized", lo, hi)
+        for label, g, w in zip(("mean", "degen", "rejl", "rejh"), got, want):
+            np.testing.assert_array_equal(_ints(g[a:a + chunk]), _ints(w),
+                                          err_msg=f"{label} from pixel {a}")

@@ -334,7 +334,8 @@ def test_register_and_stack_emits_its_stages(bench):
         assert by[name].parent == root.id and by[name].root == root.id, name
     assert by["align.copy"].attrs == {"form": "slice"}
     assert by["stack.reject"].attrs == {"shape": (8, 128 * 128),
-                                        "rejection": "winsorized"}
+                                        "rejection": "winsorized",
+                                        "form": "plain"}
     nbytes = stacked.nbytes + 8 * 8 + quality.nbytes
     assert by["result.to_host"].attrs == {"bytes": nbytes}
     np.testing.assert_array_equal(shifts, -bench.shifts)
