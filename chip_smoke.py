@@ -35,11 +35,11 @@ exits non-zero without printing a result:
    (CUDA events, median of 3 warm runs), with the plain version's ms for
    the kernel and for the whole stack stage at the same shape; then the
    align kernel (align_shift; phase 4's register_and_stack must have made
-   exactly one launch of it) against align_frames_gather word for word,
-   its device ms a launch back to back beside its bound (each frame word
-   read once and written once) and beside the bytes the shifts need, the
-   ms of one call, and the ms of the plain align_frames_slice (its host
-   read of the shifts included) and align_frames_gather;
+   exactly one launch of it) against align_frames_slice, its plain
+   version, word for word, its device ms a launch back to back beside its
+   bound (each frame word read once and written once) and beside the bytes
+   the shifts need, the ms of one call, and the ms of align_frames_slice
+   (its host read of the shifts included);
 6. config 2: stack_frames on 50 x 1 x 2048 x 2048 frames made on the card
    (shifts in [-20, 20]): the median stack, then the mean stack with sigma
    (3, 3), percentile (0.2, 0.1) and sigmedian (3, 3), no normalization;
@@ -52,9 +52,9 @@ exits non-zero without printing a result:
    degenerate pixels costs inside the kernel; then register_and_stack on
    these frames, the planetary cell's shape (winsorized (3, 3)): one align
    launch and one winsorized launch in its wires form, its stack equal to
-   the winsorized kernel over align_frames_gather; and the align kernel
+   the winsorized kernel over align_frames_slice; and the align kernel
    timed as in phase 5. The kernels line carries the align kernel's
-   launches, words that differ, and this shape's ms, align_frames_gather
+   launches, words that differ, and this shape's ms, align_frames_slice
    ms and bound, and for the winsorized kernel, beside its ms at this
    shape, its form, registers and resident warps per SM at F = 1000;
 8. the sequence path, in a temporary directory that is removed at the end:
@@ -400,7 +400,7 @@ def make_frames(f: int, h: int, w: int, seed: int, dev, outliers: int = 1000):
     frame's pixels each (0.1% by default, none for 0). Returns the frames and the
     (F, 2) int32 registration shifts (shiftx, shifty) that undo the drift."""
     import torch
-    from siriltpu_torch.pipelines.register_stack import _shift_into
+    from siriltpu_torch.ops.shift import shift_into
     from siriltpu_torch.utils.interop import i32_to_u16
 
     rng = np.random.default_rng(seed)
@@ -421,7 +421,7 @@ def make_frames(f: int, h: int, w: int, seed: int, dev, outliers: int = 1000):
     nout = h * w // outliers if outliers else 0
     for i in range(f):
         shifted.zero_()
-        _shift_into(shifted, base, int(drift[i, 0]), int(drift[i, 1]))
+        shift_into(shifted, base, int(drift[i, 0]), int(drift[i, 1]))
         noisy = shifted + float(level[i]) + 10.0 * torch.randn((h, w), **kw)
         frames[i] = i32_to_u16(torch.clamp(noisy, 0, 65535)).view(torch.int16).reshape(-1)
         for value in (0, 60000):
@@ -506,8 +506,8 @@ class Record:
         self.bound = {}
         self.library = dict.fromkeys(names)
         #: the align kernel: launches of the main paths, words that differ
-        #: from align_frames_gather, and at the planetary shape (phase 7)
-        #: its ms, align_frames_gather's ms and its bound
+        #: from align_frames_slice, and at the planetary shape (phase 7)
+        #: its ms, align_frames_slice's ms and its bound
         self.align = {"launches": 0, "err": 0}
         #: per kernel, the form, registers and resident warps of its launch
         #: at the shape it is timed at, where reported
@@ -690,9 +690,9 @@ def phase4_5(rs, rec, dev, card):
         fail(f"stacked image {tuple(stacked.shape)} {stacked.dtype}")
     if quality.shape != (NFRAMES,) or not bool(torch.isfinite(quality).all()):
         fail("quality is not finite of shape (F,)")
-    # the plain reference aligns with the gather form (the main path used
-    # the align kernel) and stacks in 2^20-pixel chunks
-    flat = prs.align_frames_gather(frames, sx, sy).reshape(NFRAMES, -1)
+    # the plain reference aligns with align_frames_slice (the main path
+    # used the align kernel) and stacks in 2^20-pixel chunks
+    flat = prs.align_frames_slice(frames, sx, sy).reshape(NFRAMES, -1)
     kmean, krejl, krejh = rs.reject_stack(flat, "sigma", SIG, SIG, with_counters=True)
     torch.cuda.synchronize()
     errs = [max_abs_diff(kmean, stacked.reshape(-1))]
@@ -770,11 +770,11 @@ def launch_ms(fn, n: int = ALIGN_REPS, groups: int = REPS):
 
 def align_timing(rec, card, label: str, frames, sx, sy):
     """The align kernel on (F, H, W) frames and their shifts on the card:
-    word-equal to align_frames_gather; its device ms a launch (back to
-    back) beside its bound and beside the bytes these shifts need, the ms
-    of one call (CUDA events around it from an idle card, so the wrapper's
-    host time is in it), and the ms of the plain align_frames_slice and
-    align_frames_gather. Returns the kernel's ms, gather's ms and the
+    word-equal to align_frames_slice, its plain version; its device ms a
+    launch (back to back) beside its bound and beside the bytes these
+    shifts need, the ms of one call (CUDA events around it from an idle
+    card, so the wrapper's host time is in it), and the ms of
+    align_frames_slice. Returns the kernel's ms, the slice's ms and the
     bound's ms."""
     import torch
     from siriltpu_torch.ops.cuda.align_shift import align_shift
@@ -784,8 +784,7 @@ def align_timing(rec, card, label: str, frames, sx, sy):
     ms = {}
     ms["kernel"] = launch_ms(lambda: align_shift(frames, sx, sy))
     ms["call"], got = cuda_ms(lambda: align_shift(frames, sx, sy), reps=ALIGN_REPS)
-    ms["slice"], _ = cuda_ms(lambda: prs.align_frames_slice(frames, sx, sy))
-    ms["gather"], want = cuda_ms(lambda: prs.align_frames_gather(frames, sx, sy))
+    ms["slice"], want = cuda_ms(lambda: prs.align_frames_slice(frames, sx, sy))
     err = int((got.view(torch.int16) != want.view(torch.int16)).sum())
     rec.align["err"] = max(rec.align["err"], err)
     del got, want
@@ -798,22 +797,21 @@ def align_timing(rec, card, label: str, frames, sx, sy):
     cy = np.clip(np.abs(sy.cpu().numpy().astype(np.int64)), 0, h)
     needed = 2 * f * h * w + 2 * int(((h - cy) * (w - cx)).sum())
     print(f"{label} align_shift [{card}] {f}x{h}x{w}: kernel vs "
-          f"align_frames_gather words that differ={err}; kernel_ms={ms['kernel']:.4f} "
+          f"align_frames_slice words that differ={err}; kernel_ms={ms['kernel']:.4f} "
           f"a launch back to back, bound {bound:.4f} ms ({nbytes} bytes at "
           f"{HBM_BYTES_PER_S:.3g} B/s, {100 * bound / ms['kernel']:.1f}% of it; "
           f"these shifts need {needed} bytes, "
           f"{100 * needed / nbytes * bound / ms['kernel']:.1f}%); one call_ms="
-          f"{ms['call']:.4f}; plain slice_ms={ms['slice']:.3f} "
-          f"gather_ms={ms['gather']:.3f}", flush=True)
+          f"{ms['call']:.4f}; plain slice_ms={ms['slice']:.3f}", flush=True)
     if err:
-        fail(f"{label}: the align kernel differs from align_frames_gather")
-    return ms["kernel"], ms["gather"], bound
+        fail(f"{label}: the align kernel differs from align_frames_slice")
+    return ms["kernel"], ms["slice"], bound
 
 
 def phase7_align(rs, rec, card, frames, shifts):
     """The planetary shape through the main path: register_and_stack
     (winsorized (3, 3), the cell's centred 256 selection) makes one align
-    launch and equals the winsorized kernel over align_frames_gather of its
+    launch and equals the winsorized kernel over align_frames_slice of its
     shifts; then the align kernel's timing at this shape."""
     import torch
     from siriltpu_torch.pipelines import register_stack as prs
@@ -829,20 +827,20 @@ def phase7_align(rs, rec, card, frames, shifts):
     rec.count(kernel_launches(), "phase7 register_and_stack", "winsorized")
     if counted("reject.form.winsorized.wires") != 1:
         fail("phase7 register_and_stack did not stack in the winsorized wires form")
-    want = rs.reject_stack(prs.align_frames_gather(frames, sx, sy).reshape(f, -1),
+    want = rs.reject_stack(prs.align_frames_slice(frames, sx, sy).reshape(f, -1),
                            "winsorized", 3.0, 3.0)
     err = max_abs_diff(stacked.reshape(-1), want)
     print(f"phase7 register_and_stack [{card}] {f}x{h}x{w} winsorized (3, 3): "
           f"align launches={counted('align.launches')}, winsorized launches in the "
           f"wires form={counted('reject.form.winsorized.wires')}; stack vs winsorized "
-          f"kernel over align_frames_gather max|diff|={err}", flush=True)
+          f"kernel over align_frames_slice max|diff|={err}", flush=True)
     rec.check("winsorized", [err], "phase7 register_and_stack")
     del stacked, want
     torch.cuda.empty_cache()
-    k_ms, g_ms, bound = align_timing(
+    k_ms, s_ms, bound = align_timing(
         rec, card, "phase7", frames,
         *(torch.from_numpy(shifts[:, i].copy()).to(frames.device) for i in (0, 1)))
-    rec.align.update(shape=[f, h, w], ms=k_ms, plain_ms=g_ms, bound_ms=bound)
+    rec.align.update(shape=[f, h, w], ms=k_ms, plain_ms=s_ms, bound_ms=bound)
 
 
 def reference_flat(frames, shifts, method: str, coeffs):
@@ -853,7 +851,7 @@ def reference_flat(frames, shifts, method: str, coeffs):
     the x-shift with zero fill (stacking.c:1546-1651). The median stack
     applies no shift."""
     import torch
-    from siriltpu_torch.pipelines.register_stack import align_frames_gather
+    from siriltpu_torch.pipelines.register_stack import align_frames_slice
     from siriltpu_torch.utils.interop import i32_to_u16, u16_to_i32
     from siriltpu_torch.utils.rounding import round_to_word_f
 
@@ -863,13 +861,13 @@ def reference_flat(frames, shifts, method: str, coeffs):
     sx, sy = (torch.from_numpy(shifts[:, k].astype(np.int64)).to(dev) for k in (0, 1))
     if method == "median":
         sx = sy = zero
-    vals = align_frames_gather(frames[:, 0], zero, sy)
+    vals = align_frames_slice(frames[:, 0], zero, sy)
     if coeffs is not None:
         off, _, scale = (torch.tensor(c, dtype=torch.float32, device=dev)[:, None, None]
                          for c in coeffs)
         x = round_to_word_f(u16_to_i32(vals).to(torch.float32) * scale - off)
         vals = i32_to_u16(x.to(torch.int32))
-    return align_frames_gather(vals, sx, zero).reshape(f, -1)
+    return align_frames_slice(vals, sx, zero).reshape(f, -1)
 
 
 def exact_cost(rs, card, label, kernel, sig, flat, loop_s):
@@ -2951,7 +2949,7 @@ def phase14a(rs, rec, dev, card):
     # the row-slab stack of the aligned frames, cut to ROWS14 rows
     sx = torch.from_numpy(shifts[:, 0]).to(dev)
     sy = torch.from_numpy(shifts[:, 1]).to(dev)
-    aligned = prs.align_frames_gather(frames, sx, sy)[:, :ROWS14]
+    aligned = prs.align_frames_slice(frames, sx, sy)[:, :ROWS14]
     del frames, bench
     torch.cuda.empty_cache()
     slab = make_rows_sigma_stack(make_mesh(("frames", "rows"), (1, SHARDS14),
@@ -3238,7 +3236,7 @@ def main(argv=None) -> int:
         "replaces": f"{ALIGN_REPLACES} (XLA, no Pallas kernel)",
         "launches": rec.align["launches"], "max_abs_err": rec.align["err"],
         "shape": rec.align["shape"], "ms": rec.align["ms"],
-        "plain_ms": rec.align["plain_ms"], "plain": "align_frames_gather",
+        "plain_ms": rec.align["plain_ms"], "plain": "align_frames_slice",
         "bound_ms": rec.align["bound_ms"], "bound_by": "bytes", "bound": "hbm",
         "library_ms": None}]}
     print(card)

@@ -4,8 +4,8 @@ shifts: the CUDA kernel ``csrc/align_shift.cu``, every frame in one launch.
 out[f, y, x] = frames[f, y - sy[f], x - sx[f]] where that lies inside the
 frame, else 0, for any shift. The kernel reads the shifts on the device, so
 a launch waits for nothing and reads nothing back to the host. Its plain
-versions are ``pipelines.register_stack.align_frames_gather`` and
-``align_frames_slice``; ``align_frames_auto`` sends a CUDA tensor here.
+version is ``pipelines.register_stack.align_frames_slice``;
+``align_frames_auto`` sends a CUDA tensor here.
 Each launch is counted (``utils.timing``, ``align.launches``).
 
 A CUDA tensor always goes to the kernel, and a failed build or launch

@@ -28,8 +28,11 @@ on instead, so every F runs on the card. The plan names the form a
 launch takes: ``wires`` (the column sorted in registers), ``shared`` (in
 shared memory) or ``scratch``.
 
-A CUDA tensor always goes to its kernel, and a failed build or launch
-raises. A CPU tensor goes to the kernel's plain version.
+``reject_stack`` is the one place that decides which code stacks a
+rejection. A CUDA tensor always goes to its kernel, and a failed build or
+launch raises. A CPU tensor goes to the kernel's plain version. A
+rejection without a kernel (none, sigma_masked, linearfit) runs
+``reject_and_mean`` in plain PyTorch on any device.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from typing import NamedTuple
 import torch
 
 from siriltpu_torch.ops.rejection import (_mean_of_survivors, masked_median,
+                                          reject_and_mean,
                                           reject_percentile, reject_sigma,
                                           reject_sigma_window,
                                           reject_sigmedian, reject_winsorized,
@@ -55,6 +59,8 @@ SMEM_LIMIT = None
 SCRATCH_BYTES = 1 << 30
 #: the forms of a launch, by the code its C plan reports
 FORMS = ("shared", "wires", "scratch")
+#: the rejections without a kernel, stacked by ``reject_and_mean``
+_NO_KERNEL = ("none", "sigma_masked", "linearfit")
 #: the window form and the exact masked loop of the rejections whose
 #: kernels settle degenerate pixels
 _WINDOWED = {"sigma": (reject_sigma_window, reject_sigma),
@@ -91,10 +97,10 @@ def launch_plan(rejection: str, f: int, p: int = 1) -> Plan:
     return Plan(out[0], bool(out[1]), *out[2:6], FORMS[out[6]])
 
 
-def _check(vals: torch.Tensor, rejection: str):
-    if rejection not in KERNELS:
-        raise ValueError(f"no rejection kernel {rejection!r} "
-                         f"(one of {', '.join(KERNELS)})")
+def _check(vals: torch.Tensor, rejection: str, names=KERNELS):
+    if rejection not in names:
+        raise ValueError(f"unknown rejection {rejection!r} "
+                         f"(one of {', '.join(names)})")
     if vals.dtype != torch.uint16:
         raise TypeError(f"expected uint16 values, got {vals.dtype}")
     if vals.dim() != 2 or vals.shape[0] < 1 or vals.shape[1] < 1:
@@ -180,8 +186,8 @@ def reject_stack(vals: torch.Tensor, rejection: str, siglow: float,
     """Rejection stack of (F, P) uint16 values -> (P,) uint16 mean (the
     median for ``rejection="median"``), or (mean, rejlow, rejhigh) with
     ``with_counters``. ``rejection`` is one of sigma, median, percentile,
-    sigmedian and winsorized; percentile takes (plow, phigh) as
-    (siglow, sighigh).
+    sigmedian and winsorized, which have kernels, or none, sigma_masked
+    and linearfit; percentile takes (plow, phigh) as (siglow, sighigh).
 
     Bit-exact against ``reject_and_mean`` (``masked_median`` for median),
     counters included. A CUDA tensor runs the CUDA kernel, a CPU tensor
@@ -193,11 +199,16 @@ def reject_stack(vals: torch.Tensor, rejection: str, siglow: float,
     ``reject_and_mean`` where the fused JAX output does not. For F <= 4
     every sigma and winsorized pixel is degenerate (the JAX package sends
     such stacks to its HBM path instead): the result is the same, only
-    slower. The CUDA route makes no host sync."""
+    slower. The CUDA route makes no host sync. A rejection without a
+    kernel runs ``reject_and_mean`` on any device."""
     siglow, sighigh = float(siglow), float(sighigh)
+    _check(vals, rejection, KERNELS + _NO_KERNEL)
     with span("stack.reject", device=vals.device, shape=tuple(vals.shape),
               rejection=rejection) as sp:
-        if vals.device.type == "cuda":
+        if rejection in _NO_KERNEL:
+            mean, rejl, rejh = reject_and_mean(vals, rejection, (siglow, sighigh))
+            sp.set(form="plain")
+        elif vals.device.type == "cuda":
             (mean, degen, rejl, rejh), plan = _launch(vals, rejection, siglow,
                                                       sighigh)
             sp.set(form=plan.form)

@@ -20,21 +20,29 @@ from __future__ import annotations
 import torch
 
 
+def shift_into(out: torch.Tensor, src: torch.Tensor, sx: int, sy: int) -> bool:
+    """out[..., y, x] = src[..., y - sy, x - sx] where that lies inside
+    ``src`` (one rectangle copy); the rest of ``out`` is left as it is.
+    Returns whether any of ``src`` landed in ``out``."""
+    h, w = src.shape[-2], src.shape[-1]
+    y0, y1 = max(0, sy), min(h, h + sy)
+    x0, x1 = max(0, sx), min(w, w + sx)
+    if y0 >= y1 or x0 >= x1:
+        return False
+    out[..., y0:y1, x0:x1] = src[..., y0 - sy : y1 - sy, x0 - sx : x1 - sx]
+    return True
+
+
 def shift2d(img: torch.Tensor, shiftx: int, shifty: int, fill: int = 0,
             skip_origin: bool = False) -> torch.Tensor:
     """Translate the last two axes (y, x) of ``img`` by integer shifts:
     result[..., y, x] = img[..., y - shifty, x - shiftx] where the source
     is in bounds, else ``fill``."""
-    h, w = img.shape[-2], img.shape[-1]
     sx, sy = int(shiftx), int(shifty)
     out = torch.full_like(img, fill)
-    y0, y1 = max(0, sy), min(h, h + sy)
-    x0, x1 = max(0, sx), min(w, w + sx)
-    if y0 < y1 and x0 < x1:
-        out[..., y0:y1, x0:x1] = img[..., y0 - sy : y1 - sy, x0 - sx : x1 - sx]
-        if skip_origin and y0 == sy and x0 == sx:
-            # the source origin (0, 0) landed at (sy, sx)
-            out[..., sy, sx] = fill
+    if shift_into(out, img, sx, sy) and skip_origin and sx >= 0 and sy >= 0:
+        # the source origin (0, 0) landed at (sy, sx)
+        out[..., sy, sx] = fill
     return out
 
 
@@ -46,4 +54,4 @@ def shift_mask(shape, shiftx: int, shifty: int, skip_origin: bool = False, *,
                    shifty, fill=False, skip_origin=skip_origin)
 
 
-__all__ = ["shift2d", "shift_mask"]
+__all__ = ["shift_into", "shift2d", "shift_mask"]

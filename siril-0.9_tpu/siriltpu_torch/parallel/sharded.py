@@ -130,7 +130,7 @@ def register_stack_step(sel: Tuple[int, int, int], rejection: str = "sigma",
 def _align_rows(frames, sx: torch.Tensor, sy: torch.Tensor, r0: int, r1: int,
                 device) -> torch.Tensor:
     """Rows [r0, r1) of every frame's zero-fill shift (the rows of
-    ``align_frames_gather``'s output), (F, r1 - r0, W) uint16 on
+    ``align_frames_slice``'s output), (F, r1 - r0, W) uint16 on
     ``device``, from the band of source rows they read alone."""
     f, h, w = frames.shape
     sx = sx.to(device=device, dtype=torch.int64)

@@ -10,8 +10,9 @@ device-resident (F, H, W) uint16 frame batch:
 2. ``quality_estimate_batch``: PIPP quality on the same selections;
 3. ``align_frames_auto``: integer zero-fill shift of every frame, on the
    card one launch of the ``align_shift`` CUDA kernel;
-4. ``reject_stack``: the rejection's CUDA kernel (sort + clip + mean per
-   pixel) plus the exact re-run of its degenerate pixels.
+4. ``stack_rejected``: ``reject_stack``, the rejection's CUDA kernel
+   (sort + clip + mean per pixel, its degenerate pixels re-run exactly)
+   or, for a rejection without one, plain PyTorch.
 
 With tracing on (``utils.timing``) a call is a ``register_and_stack``
 span over the stages' spans ``register.shifts``, ``register.quality``,
@@ -30,15 +31,12 @@ import torch
 
 from siriltpu_torch.ops.cuda.align_shift import align_shift
 from siriltpu_torch.ops.cuda.reject_stack import reject_stack
-from siriltpu_torch.ops.rejection import reject_and_mean
 from siriltpu_torch.ops.fftreg import _ref_fft, phase_correlate
 from siriltpu_torch.ops.quality import quality_estimate_batch
-from siriltpu_torch.utils.build import KERNELS
+from siriltpu_torch.ops.shift import shift_into
 from siriltpu_torch.utils.interop import (i32_to_u16, shifts_to_numpy,
                                           u16_to_numpy)
 from siriltpu_torch.utils.timing import span
-
-ALIGN_MARGIN = 64  # shift bound of the slice-form align
 
 
 def _selection(frames: torch.Tensor, sel: Tuple[int, int, int]) -> torch.Tensor:
@@ -63,93 +61,44 @@ def compute_shifts(frames: torch.Tensor, ref_index: int,
     return sx, sy
 
 
-def align_frames_gather(frames: torch.Tensor, sx: torch.Tensor,
-                        sy: torch.Tensor) -> torch.Tensor:
+def align_frames_slice(frames: torch.Tensor, sx: torch.Tensor,
+                       sy: torch.Tensor) -> torch.Tensor:
     """Zero-fill integer shift of every frame, uint16 -> uint16:
-    out[f, y, x] = frames[f, y - sy_f, x - sx_f], or 0 outside. One
-    gather with clipped per-frame row and column indices; any shift."""
-    f, h, w = frames.shape
-    dev = frames.device
-    with span("align.copy", device=dev, form="gather"):
-        rows = torch.arange(h, device=dev)[None, :] - sy.to(torch.int64)[:, None]
-        cols = torch.arange(w, device=dev)[None, :] - sx.to(torch.int64)[:, None]
-        mask = (((rows >= 0) & (rows < h))[:, :, None]
-                & ((cols >= 0) & (cols < w))[:, None, :])
-        g = frames.view(torch.int16)[
-            torch.arange(f, device=dev)[:, None, None],
-            rows.clamp(0, h - 1)[:, :, None], cols.clamp(0, w - 1)[:, None, :]]
-        return torch.where(mask, g, 0).view(torch.uint16)
-
-
-def _shift_into(out: torch.Tensor, src: torch.Tensor, sx: int, sy: int):
-    """out[y, x] = src[y - sy, x - sx] where that lies inside src; the
-    rest of ``out`` is left as it is."""
-    h, w = src.shape
-    y0, y1 = max(0, sy), min(h, h + sy)
-    x0, x1 = max(0, sx), min(w, w + sx)
-    if y0 < y1 and x0 < x1:
-        out[y0:y1, x0:x1] = src[y0 - sy : y1 - sy, x0 - sx : x1 - sx]
-
-
-def _align_slice(frames: torch.Tensor, xs, ys) -> torch.Tensor:
+    out[f, y, x] = frames[f, y - sy_f, x - sx_f], or 0 outside; any shift.
+    The shifts are read to the host (a wait for the card there), then each
+    frame is one rectangle copy into a zeroed output. The plain version of
+    the ``align_shift`` kernel."""
+    with span("align.shift_read"):
+        xs, ys = sx.tolist(), sy.tolist()
     with span("align.copy", device=frames.device, form="slice"):
-        out = torch.zeros_like(frames.view(torch.int16))
         src = frames.view(torch.int16)
+        out = torch.zeros_like(src)
         for i, (x, y) in enumerate(zip(xs, ys)):
-            _shift_into(out[i], src[i], x, y)
+            shift_into(out[i], src[i], x, y)
     return out.view(torch.uint16)
 
 
-def _read_shifts(sx: torch.Tensor, sy: torch.Tensor):
-    """The shifts as two lists on the host (a wait for the card there),
-    and the largest |shift|."""
-    with span("align.shift_read"):
-        xs, ys = sx.tolist(), sy.tolist()
-        reach = max((max(abs(x), abs(y)) for x, y in zip(xs, ys)), default=0)
-    return xs, ys, reach
-
-
-def align_frames_slice(frames: torch.Tensor, sx: torch.Tensor,
-                       sy: torch.Tensor) -> torch.Tensor:
-    """The same zero-fill shift as :func:`align_frames_gather`, as one
-    rectangle copy per frame into a zeroed output: a straight copy
-    instead of a gather. Exact for any shift; it costs one host sync to
-    read the shifts."""
-    xs, ys, _ = _read_shifts(sx, sy)
-    return _align_slice(frames, xs, ys)
+#: ``siriltpu`` exports a gather and a slice form of its align; here both
+#: names are the one plain function
+align_frames_gather = align_frames_slice
 
 
 def align_frames_auto(frames: torch.Tensor, sx: torch.Tensor,
-                      sy: torch.Tensor, margin: int = ALIGN_MARGIN
-                      ) -> torch.Tensor:
-    """The zero-fill shift of :func:`align_frames_gather`. On the card,
-    the ``align_shift`` kernel: every frame in one launch, the shifts read
-    on the device, no host sync. Elsewhere the slice form for shifts up to
-    ``margin``, the gather form beyond it (a frame that has drifted that
-    far is mostly zero fill)."""
+                      sy: torch.Tensor) -> torch.Tensor:
+    """The zero-fill shift of :func:`align_frames_slice`. On the card, the
+    ``align_shift`` kernel: every frame in one launch, the shifts read on
+    the device, no host sync. Elsewhere :func:`align_frames_slice`."""
     if frames.device.type == "cuda":
         with span("align.copy", device=frames.device, form="kernel"):
             return align_shift(frames.contiguous(),
                                sx.to(torch.int32).contiguous(),
                                sy.to(torch.int32).contiguous())
-    # host sync: the choice needs max |shift| on the host; the slice form
-    # reuses the shifts read here
-    xs, ys, reach = _read_shifts(sx, sy)
-    if reach <= margin:
-        return _align_slice(frames, xs, ys)
-    return align_frames_gather(frames, sx, sy)
+    return align_frames_slice(frames, sx, sy)
 
 
 def stack_rejected(flat: torch.Tensor, rejection: str, sig) -> torch.Tensor:
     """(F, P) uint16 aligned values -> (P,) uint16 rejection mean."""
-    if rejection in KERNELS:
-        # the fused kernels: sort + rejection + mean per pixel in one pass
-        # (sigma and winsorized with the exact degenerate-pixel re-run)
-        return reject_stack(flat, rejection, float(sig[0]), float(sig[1]))
-    # no kernel (none, sigma_masked, linearfit): plain PyTorch on the device
-    with span("stack.reject", device=flat.device, shape=tuple(flat.shape),
-              rejection=rejection, form="plain"):
-        return reject_and_mean(flat, rejection, sig)[0]
+    return reject_stack(flat, rejection, sig[0], sig[1])
 
 
 def register_and_stack(frames_dev: torch.Tensor, *, sel: Tuple[int, int, int],
@@ -166,10 +115,10 @@ def register_and_stack(frames_dev: torch.Tensor, *, sel: Tuple[int, int, int],
     ``block_rows`` and ``keep_frames`` are accepted for the signature of
     ``siriltpu``'s function and have no effect: the kernel stacks all rows
     in one launch, and eager PyTorch never donates the caller's frames.
-    Every rejection with a kernel (sigma, median, percentile, sigmedian,
-    winsorized) runs it; none, sigma_masked and linearfit go through
-    ``reject_and_mean`` in plain PyTorch (linearfit as the f32 fit, without
-    the exact re-run of ``stacking.api``, as in ``siriltpu``).
+    ``reject_stack`` stacks every rejection: sigma, median, percentile,
+    sigmedian and winsorized with their kernels; none, sigma_masked and
+    linearfit in plain PyTorch (linearfit as the f32 fit, without the
+    exact re-run of ``stacking.api``, as in ``siriltpu``).
     """
     f, h, w = frames_dev.shape
     dev = frames_dev.device
@@ -243,7 +192,7 @@ def _make_bench_frames(shifts: np.ndarray, nframes: int, size: int,
         # off-frame; |shift| <= 20 keeps the border out of the central
         # registration selection, so the recovered shifts stay exact
         shifted.zero_()
-        _shift_into(shifted, base, int(shifts[i, 0]), int(shifts[i, 1]))
+        shift_into(shifted, base, int(shifts[i, 0]), int(shifts[i, 1]))
         frames[i] = i32_to_u16(torch.clamp(shifted + noise, 0, 65535)).view(torch.int16)
     return frames.view(torch.uint16)
 
@@ -276,5 +225,4 @@ class RegisterStackBench:
 
 
 __all__ = ["register_and_stack", "compute_shifts", "align_frames_gather",
-           "align_frames_slice", "align_frames_auto", "RegisterStackBench",
-           "ALIGN_MARGIN"]
+           "align_frames_slice", "align_frames_auto", "RegisterStackBench"]

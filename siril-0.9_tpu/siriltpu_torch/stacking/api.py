@@ -16,11 +16,12 @@ Port of ``siriltpu.stacking.api``. Reference: src/stacking/stacking.c —
 
 Every row block is normalized, shifted, converted exactly to uint16 and
 stacked on the device (``_BlockLoop``, the one block loop of both
-entry points): the mean and median stacks through the CUDA rejection kernels
-(``ops.cuda.reject_stack``), rejection "none" and "linearfit" through plain
-PyTorch. The result crosses to the host once, at the end; linearfit also
-brings the raw values of its knife-edge pixels to the host, block by block,
-for their exact re-run (``_BlockLoop._linearfit``). ``stack_frames`` gathers its
+entry points): the mean and median stacks through ``ops.cuda.reject_stack``
+(the CUDA rejection kernels, or plain PyTorch for a rejection without
+one), linearfit through its hybrid. The result crosses to the host once,
+at the end; linearfit also brings the raw values of its knife-edge pixels
+to the host, block by block, for their exact re-run
+(``_BlockLoop._linearfit``). ``stack_frames`` gathers its
 y-shifted blocks from frames on the device; the streaming
 ``stack_sequence`` reads them from the files with a host thread, into
 pinned memory, one block ahead of the card.
@@ -50,7 +51,7 @@ from siriltpu_torch.core.memory import (get_available_memory_mb,
 from siriltpu_torch.ops import stack as basic_stack
 from siriltpu_torch.ops.cuda.reject_stack import reject_stack
 from siriltpu_torch.ops.rejection import (_mean_of_survivors, linearfit_exact,
-                                          reject_and_mean, reject_linearfit)
+                                          reject_linearfit)
 from siriltpu_torch.ops.stats import (STATS_EXTRA, ikss_from_histogram,
                                       statistics)
 from siriltpu_torch.utils.interop import (frames_from_numpy, i32_to_u16,
@@ -375,12 +376,10 @@ class _BlockLoop:
                 o, rl, rh = self._linearfit(
                     block, _xshift_block(norm, self.sx).reshape(f, -1))
             else:
-                flat = _to_u16(_xshift_block(norm, self.sx).reshape(f, -1))
-                if self.rejection == "none":
-                    o, rl, rh = reject_and_mean(flat, "none")
-                else:
-                    o, rl, rh = reject_stack(flat, self.rejection, self.siglow,
-                                             self.sighigh, with_counters=True)
+                o, rl, rh = reject_stack(
+                    _to_u16(_xshift_block(norm, self.sx).reshape(f, -1)),
+                    self.rejection, self.siglow, self.sighigh,
+                    with_counters=True)
             if self.method == "mean":
                 self.rejl[ch] += rl.sum()
                 self.rejh[ch] += rh.sum()

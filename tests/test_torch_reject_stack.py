@@ -305,13 +305,15 @@ def test_reject_plain_matches_jax_reject_and_mean(rejection, F, P, every, sig):
                                       err_msg=name)
 
 
-@pytest.mark.parametrize("rejection", KERNELS)
+@pytest.mark.parametrize("rejection", KERNELS + ("none", "sigma_masked",
+                                                 "linearfit"))
 def test_cpu_route_span_reports_form_plain(rejection):
     """On the CPU route the ``stack.reject`` span names the form
     ``plain``, and no kernel form is counted (``reject.form.*`` counts
-    launches on the card only)."""
+    launches on the card only). A rejection without a kernel takes the
+    same span and gives ``reject_and_mean``'s words and counters."""
     vals = frames_from_numpy(make_vals(25, 64), "cpu")
-    lo, hi = SIGS[rejection]
+    lo, hi = SIGS.get(rejection, (2.5, 2.5))
 
     def forms():
         return {k: v for k, v in counters().items() if k.startswith("reject.form.")}
@@ -320,13 +322,17 @@ def test_cpu_route_span_reports_form_plain(rejection):
     timing.collect()
     timing.enable()
     try:
-        rs.reject_stack(vals, rejection, lo, hi)
+        got = rs.reject_stack(vals, rejection, lo, hi, with_counters=True)
     finally:
         timing.disable()
     spans = [s for s in timing.collect() if s.name == "stack.reject"]
     assert [s.attrs for s in spans] == [
         {"shape": (25, 64), "rejection": rejection, "form": "plain"}]
     assert forms() == before
+    if rejection not in KERNELS:
+        want = trej.reject_and_mean(vals, rejection, (lo, hi))
+        for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
+            np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=name)
 
 
 def test_wrapper_rejects_bad_input():
@@ -338,7 +344,7 @@ def test_wrapper_rejects_bad_input():
     with pytest.raises(ValueError):
         rs.reject_stack(torch.zeros((0, 8), dtype=torch.uint16), "sigma", 3.0, 3.0)
     with pytest.raises(ValueError):
-        rs.reject_stack(torch.zeros((5, 8), dtype=torch.uint16), "linearfit",
+        rs.reject_stack(torch.zeros((5, 8), dtype=torch.uint16), "kappa",
                         3.0, 3.0)
     with pytest.raises(ValueError):
         rs.reject_cuda(torch.zeros((5, 8), dtype=torch.uint16), "sigma", 3.0, 3.0)

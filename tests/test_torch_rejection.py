@@ -168,17 +168,16 @@ def test_masked_median_matches_jax(F):
                                        "winsorized"])
 def test_fused_rejection_goldens_exact(rejection):
     """Every record of the compiled C for this rejection, mean and both
-    counters, through reject_and_mean and (but none, which has no kernel)
-    the dispatcher's CPU route."""
+    counters, through reject_and_mean and the dispatcher's CPU route
+    (none through its plain route there)."""
     groups = {}
     for kind, _, n, sig0, sig1, vec, mean, rej0, rej1 in _read_rejection():
         if REJ_NAMES[kind] == rejection:
             groups.setdefault((n, sig0, sig1), []).append((vec, mean, rej0, rej1))
     assert groups
-    routes = ["reject_and_mean"] + ([] if rejection == "none" else ["reject_stack"])
     for (n, sig0, sig1), items in groups.items():
         vals = np.stack([it[0] for it in items], axis=1)  # (n, records)
-        for route in routes:
+        for route in ("reject_and_mean", "reject_stack"):
             if route == "reject_stack":
                 mean, rl, rh = reject_stack(t(vals), rejection, sig0, sig1,
                                             with_counters=True)

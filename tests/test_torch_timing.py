@@ -347,14 +347,16 @@ def test_register_and_stack_emits_its_stages(bench):
     assert names == sorted(set(STAGES) - {"register.quality", "result.to_host"})
 
 
-def test_align_gather_form_is_a_span():
+def test_align_far_shift_is_a_slice_span():
+    """A shift past the frame takes the CPU's one route: the host read of
+    the shifts, then the slice copy."""
     frames = torch.zeros((3, 16, 16), dtype=torch.uint16)
     sx = torch.tensor([0, 100, -3], dtype=torch.int32)
     timing.enable()
     trs.align_frames_auto(frames, sx, sx)
     spans = collect()
     assert [(s.name, s.attrs) for s in spans] == [
-        ("align.shift_read", {}), ("align.copy", {"form": "gather"})]
+        ("align.shift_read", {}), ("align.copy", {"form": "slice"})]
 
 
 @pytest.mark.parametrize("stream", [True, False])
