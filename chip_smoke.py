@@ -14,8 +14,10 @@ exits non-zero without printing a result:
    and spills (any local memory, or a source with no entry, fails the run),
    and the warps the winsorized kernel keeps resident per SM at F = 1000
    (its wires form, at least MIN_WARPS_F1000), with that entry's
-   registers, the sigma kernel at F = 100 and the median, percentile and
-   sigmedian kernels at F = 50;
+   registers, the sigma kernel at F = 100 (its team form, at least
+   MIN_WARPS_SIGMA_F100, with its entry's registers; every team entry
+   must be there) and the median, percentile and sigmedian kernels at
+   F = 50;
 3. kernels vs plain: each of the five CUDA rejection kernels (sigma,
    median, percentile, sigmedian, winsorized) against its plain PyTorch
    version on the card, bit for bit, for F in {3, 5, 12, 25, 64, 100, 256,
@@ -27,10 +29,11 @@ exits non-zero without printing a result:
    shared memory); then the dispatcher
    against reject_and_mean (masked_median for median), under
    torch.cuda.set_sync_debug_mode("error"), so a host sync fails the run;
+   every sigma launch at F <= 128 must take the team form;
 4. register + sigma stack: register_and_stack on a 100 x 4096 x 4096
    uint16 sequence made on the card (shifts in [-20, 20]): exact shifts,
-   the kernel's launch count, and the stacked image and counters bit-equal
-   to the plain version run in 2^20-pixel chunks;
+   the kernel's launch count (one, in the team form), and the stacked image
+   and counters bit-equal to the plain version run in 2^20-pixel chunks;
 5. its timing: frames/s end to end (mean of 3 warm runs) and per-stage ms
    (CUDA events, median of 3 warm runs), with the plain version's ms for
    the kernel and for the whole stack stage at the same shape; then the
@@ -43,7 +46,9 @@ exits non-zero without printing a result:
 6. config 2: stack_frames on 50 x 1 x 2048 x 2048 frames made on the card
    (shifts in [-20, 20]): the median stack, then the mean stack with sigma
    (3, 3), percentile (0.2, 0.1) and sigmedian (3, 3), no normalization;
-   and the sigma kernel's time at this shape (its 64-wire register sort),
+   and the sigma kernel's time at this shape (its team form at F = 50;
+   the kernels line carries it beside its bound, and the ms at 100 x
+   4096 x 4096),
    and the sigmedian kernel's at sigmas of 50, where no pixel flags (its
    first pass alone);
 7. config 3: stack_frames(mean, winsorized (3, 3), additive_scaling) on
@@ -361,6 +366,15 @@ MIN_WARPS_F1000 = 32
 #: the winsorized kernel's entry at F = 1000 (32 wires a lane, H = 16), as
 #: its mangled name holds it
 WIRES_F1000 = "winsorized_wiresILi16E"
+#: least warps the sigma kernel keeps resident per SM at F = 100: its team
+#: form's 8-warp blocks, 3 to an SM while its entry takes at most 80
+#: registers (78 with nvcc 12.8)
+MIN_WARPS_SIGMA_F100 = 24
+#: the sigma kernel's team entries (T lanes a pixel, H registers a lane),
+#: as their mangled names hold them, and the one of F = 100 (T = 2, H = 32)
+TEAM_ENTRIES = ("sigma_teamILi1ELi2E", "sigma_teamILi1ELi4E", "sigma_teamILi1ELi8E",
+                "sigma_teamILi1ELi16E", "sigma_teamILi1ELi32E", "sigma_teamILi2ELi32E")
+TEAM_F100 = "sigma_teamILi2ELi32E"
 PALLAS = "siril-0.9_tpu/siriltpu/ops/pallas/reject_stack.py"
 #: first line of each kernel's branch of _make_kernel
 REPLACES = {"sigma": 797, "median": 255, "percentile": 271, "sigmedian": 297,
@@ -639,8 +653,12 @@ def phase3(rs, rec, dev):
         plan = rs.launch_plan(rej, f, p)
         if plan.scratch != ((rej, f) in SCRATCH_CASES):
             fail(f"{rej} at F={f}: scratch path {plan.scratch}")
+        teams = counted("reject.form.sigma.team")
         got = rs.reject_cuda(vals, rej, lo, hi)
         torch.cuda.synchronize()
+        if rej == "sigma" and f <= 128 and not plan.scratch and (
+                plan.form != "team" or counted("reject.form.sigma.team") != teams + 1):
+            fail(f"sigma at F={f}: form {plan.form}, not the team form")
         want = rs.reject_plain(vals, rej, lo, hi)
         torch.cuda.synchronize()
         errs = [max_abs_diff(g, w) for g, w in zip(got, want)]
@@ -683,6 +701,8 @@ def phase4_5(rs, rec, dev, card):
     torch.cuda.synchronize()
     launches = kernel_launches()
     rec.count(launches, "register_and_stack", "sigma")
+    if counted("reject.form.sigma.team") != 1:
+        fail("phase4 register_and_stack did not stack in the sigma team form")
     align_launched(rec, "phase4 register_and_stack")
     if not np.array_equal(shifts_to_numpy(sx, sy), -bench.shifts):
         fail("recovered shifts differ from the negated generated ones")
@@ -986,9 +1006,13 @@ def stack_config(rs, rec, dev, card, label, frames, shifts, method, rejection,
     k_ms, _ = cuda_ms(lambda: rs.reject_cuda(flat, kernel, *sig))
     if kernel in rec.ms:
         # sigma's own row is the north star's; this shape is the one of the
-        # percentile and sigmedian kernels, whose register sort it shares
-        print(f"timing [{card}] {kernel} kernel at {f}x{h * w}: {k_ms:.3f} ms "
-              f"(median of {REPS} warm runs)", flush=True)
+        # percentile and sigmedian kernels, and the kernels line carries it
+        # beside its bound
+        _, bound = hbm_bound(f, h * w)
+        rec.plan.setdefault(kernel, {}).update(
+            {f"ms_f{f}": k_ms, f"bound_ms_f{f}": bound})
+        print(f"timing [{card}] {kernel} kernel at {f}x{h * w}: {k_ms:.3f} ms, "
+              f"bound {bound:.4f} ms (median of {REPS} warm runs)", flush=True)
     else:
         p_ms, _ = cuda_ms(chunked(lambda v: rs.reject_plain(v, kernel, *sig), flat))
         rec.ms[kernel] = (k_ms, p_ms)
@@ -3130,7 +3154,9 @@ def main(argv=None) -> int:
     plans = {k: rs.launch_plan(k, f) for k, f in (
         ("winsorized", 1000), ("sigma", 100), ("median", 50), ("percentile", 50),
         ("sigmedian", 50))}
-    wires = [n for e, n in entry_registers(log).items() if WIRES_F1000 in e]
+    regs = entry_registers(log)
+    wires = [n for e, n in regs.items() if WIRES_F1000 in e]
+    teams = {t: [n for e, n in regs.items() if t in e] for t in TEAM_ENTRIES}
     print(f"occupancy: resident warps per SM {({k: v.warps for k, v in plans.items()})} "
           f"(winsorized at F = 1000 with {plans['winsorized'].tile} pixels a block, "
           f"form {plans['winsorized'].form}, {wires} registers, "
@@ -3143,9 +3169,17 @@ def main(argv=None) -> int:
     if plans["winsorized"].form != "wires" or len(wires) != 1:
         fail(f"winsorized at F = 1000: form {plans['winsorized'].form}, "
              f"registers {wires} of entry {WIRES_F1000}")
+    print(f"occupancy: sigma team entries' registers {teams}", flush=True)
+    if any(len(n) != 1 for n in teams.values()):
+        fail(f"ptxas does not report every sigma team entry once: {teams}")
+    if plans["sigma"].form != "team" or plans["sigma"].warps < MIN_WARPS_SIGMA_F100:
+        fail(f"sigma at F = 100: form {plans['sigma'].form}, "
+             f"{plans['sigma'].warps} warps per SM")
     rec = Record(build.KERNELS)
     rec.plan["winsorized"] = {"form": plans["winsorized"].form, "registers": wires[0],
                               "warps": plans["winsorized"].warps}
+    rec.plan["sigma"] = {"form": plans["sigma"].form, "registers": teams[TEAM_F100][0],
+                         "warps": plans["sigma"].warps}
     # ---- 3. every kernel vs its plain version
     if wanted(3):
         phase3(rs, rec, dev)

@@ -21,11 +21,15 @@
 //   coalesced 2-byte loads. The column lives in shared memory at stride
 //   `tile` (F * tile * 2 bytes a block), or in a device-memory scratch laid
 //   out (F, P) when even tile 32 does not fit in the 227 KB a block may use;
-// - sigma (reject_sigma.cu), and percentile and sigmedian up to F = 128
-//   (wire_kernel below): one thread a pixel as well, but the column is
-//   sorted in registers by a network unrolled at compile time (Wires).
-//   Percentile runs its whole clip on the registers; sigma and sigmedian
-//   write the sorted column to shared memory once for their clip passes;
+// - percentile and sigmedian up to F = 128 (wire_kernel below): one thread
+//   a pixel as well, but the column is sorted in registers by a network
+//   unrolled at compile time (Wires). Percentile runs its whole clip on the
+//   registers; sigmedian writes the sorted column to shared memory once
+//   for its clip passes;
+// - sigma (reject_sigma.cu): up to F = 128 a team of T lanes a pixel (one
+//   or two, chosen from F; warp wires below), its column sorted and clipped
+//   in the team's registers; past it one thread a pixel on a column in
+//   shared memory or the scratch;
 // - winsorized (reject_winsorized.cu): a warp a pixel (a team of 32
 //   lanes). Up to F = 2048 the column lives in the warp's registers
 //   (warp wires below), sorted there by a warp-wide network and walked
@@ -37,8 +41,9 @@
 // break (N - r <= 4, stacking.c:1684-1688) cannot be told by the window
 // form, which freezes the pixel (Window::step). Sigma and winsorized then
 // settle it inside the kernel: the warp that owns it (for sigma, the warp
-// of its thread, one degenerate lane at a time) re-runs the reference's
-// masked loop, exact_masked below, on the sorted column it already holds.
+// of its thread or team, one degenerate pixel at a time) re-runs the
+// reference's masked loop, exact_masked below, on its sorted column in
+// shared memory.
 // That is rejection.py:_stale_pass with its positional stale buffer: two
 // bits a frame (the validity mask by slot and the rejected[] buffer by
 // rank, double-buffered), 3 * ceil(F / 32) words a warp, kept beside the
@@ -118,17 +123,14 @@ struct Column {
 // registers has a constant trip count and is unrolled, so every register
 // index is a compile-time constant and nothing goes to local memory.
 
-// Launch bound of the register kernels; tile is 32, 64 or 128.
+// Launch bound of the thread-a-pixel kernels; tile is 32, 64 or 128.
 constexpr int kThreads = 128;
 
 // Blocks of kThreads an SM should hold (0: no bound) for the register sort
 // of W wires (W == 0: sigma's shared-memory or scratch sort), which bounds
-// ptxas's registers a thread. With no bound ptxas spills sigma at W = 32
-// and on its shared-memory and scratch sorts; with any bound it spills
-// sigma at W = 128 or gives W = 64 more registers than it needs, and runs
-// slower. With these none spills: at W = 32, 64 and 128 sigma takes 91,
-// 72 and 166 registers, percentile 54, 54 and 84, sigmedian 80, 55 and
-// 118.
+// ptxas's registers a thread. With no bound ptxas spills sigma's
+// shared-memory and scratch sorts; at W = 32, 64 and 128 percentile takes
+// 54, 54 and 84 registers, sigmedian 80, 55 and 118, none spilling.
 constexpr int min_blocks(int w) { return w == 64 || w == 128 ? 0 : 4; }
 
 // One compare-exchange stage of the bitonic sort of W uint16 wires, then
@@ -288,6 +290,15 @@ struct SdSums {
     shh += h8 * h8;
     shl += h8 * l8;
     sll += l8 * l8;
+  }
+  // add d `times` times (times < 0 takes them off)
+  __device__ __forceinline__ void add(int32_t d, Acc times) {
+    const int32_t ad = d < 0 ? -d : d;
+    const int32_t h8 = ad >> 8, l8 = ad & 255;
+    s1 += times * d;
+    shh += times * (h8 * h8);
+    shl += times * (h8 * l8);
+    sll += times * (l8 * l8);
   }
   // gsl_stats sample sd of the n values: the one float combine.
   __device__ __forceinline__ float sd(int n) const {
@@ -671,14 +682,31 @@ __device__ __forceinline__ Result exact_masked(const C& x, int f, Masks m, float
 
 // ------------------------------------------------------------ warp wires
 //
-// A column of F <= 64 * H values held by a warp, H registers a lane, two
-// uint16 wires a register, pads at 65535: lane l holds the run of wires
-// 2Hl .. 2Hl + 2H - 1, wire 2Hl + w in half w / H of register w % H (the
-// layout of Wires, one run a lane). Sorted, the wires are the column in
-// ascending order. Every loop over the registers has a constant trip count
-// and is unrolled, so every register index is a compile-time constant.
-// Every function below is called by all 32 lanes of a warp, and a value it
-// returns is the same in every lane.
+// A column of F <= 2HT values held by a team of T lanes (T a power of two,
+// the warp at T = 32; a warp holds 32 / T teams, each on its own pixel), H
+// registers a lane, two uint16 wires a register, pads at 65535: lane l of
+// the team holds the run of wires 2Hl .. 2Hl + 2H - 1, wire 2Hl + w in half
+// w / H of register w % H (the layout of Wires, one run a lane). Sorted,
+// the wires are the column in ascending order. Every loop over the
+// registers has a constant trip count and is unrolled, so every register
+// index is a compile-time constant. Every function below is called by all
+// 32 lanes of a warp, and a value it returns is the same in every lane of a
+// team.
+
+// The exact sum of a value over the team's lanes: the warp's reduction
+// at T = 32, else shuffles across the team (a reduction under a mask of a
+// few lanes is slower).
+template <int T>
+__device__ __forceinline__ uint32_t team_add(uint32_t x) {
+  static_assert(T >= 1 && T <= 32 && (T & (T - 1)) == 0, "a power of two of lanes, 32 at most");
+  if constexpr (T == 32) {
+    return __reduce_add_sync(kFull, x);
+  } else {
+#pragma unroll
+    for (int o = T / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+    return x;
+  }
+}
 
 // The first stage of the merge of sorted runs of m + 1 lanes (m + 1 a
 // power of two, at least 2): wire g against wire g ^ (2H(m + 1) - 1), the
@@ -711,22 +739,68 @@ __device__ __forceinline__ void lanes_half(uint32_t (&v)[H], int m) {
   }
 }
 
-// Ascending sort of the warp's 64H wires: each lane's run by the register
-// network of BitonicStage, then the merges of runs of 2, 4, ..., 32 lanes,
+// Ascending sort of each team's 2HT wires: each lane's run by the register
+// network of BitonicStage, then the merges of runs of 2, 4, ..., T lanes,
 // each a flip across lanes, the half-cleaners that cross lanes (shuffles)
-// and those inside a lane (BitonicStage at K == W, all ascending).
-template <int H>
+// and those inside a lane (BitonicStage at K == W, all ascending). A
+// shuffle by lane ^ m, m < T, stays inside the team.
+template <int T = 32, int H>
 __device__ __forceinline__ void warp_sort(uint32_t (&v)[H]) {
   static_assert(H >= 2 && (H & (H - 1)) == 0, "a power of two of registers, two at least");
   constexpr int W = 2 * H;
   BitonicStage<W, 2, 1>::run(v);
 #pragma unroll
-  for (int lanes = 2; lanes <= 32; lanes <<= 1) {
+  for (int lanes = 2; lanes <= T; lanes <<= 1) {
     lanes_flip(v, lanes - 1);
 #pragma unroll
     for (int m = lanes / 4; m >= 1; m >>= 1) lanes_half(v, m);
     BitonicStage<W, W, H>::run(v);
   }
+}
+
+// Register O + (r mod N) of v, by a tree of selects on the bits of r (every
+// register index a constant).
+template <int O, int N, int H>
+__device__ __forceinline__ uint32_t pick(const uint32_t (&v)[H], int r) {
+  if constexpr (N == 1) {
+    return v[O];
+  } else {
+    const uint32_t lo = pick<O, N / 2>(v, r), hi = pick<O + N / 2, N / 2>(v, r);
+    return (r & (N / 2)) != 0 ? hi : lo;
+  }
+}
+
+// Wire k of the team's sorted column (k < 2HT, the same k in every lane
+// of the team), read by the lane that holds it and handed round the team.
+template <int T, int H>
+__device__ __forceinline__ int32_t team_at(const uint32_t (&v)[H], int k) {
+  const uint32_t w = pick<0, H>(v, k);
+  const int32_t x = static_cast<int32_t>((k & H) != 0 ? w >> 16 : w & 0xffffu);
+  if constexpr (T == 1) {
+    return x;
+  } else {
+    return __shfl_sync(kFull, x, k / (2 * H), T);
+  }
+}
+
+// The wires of the team at most L (L in [-1, 65535]) and at least U (U in
+// [0, 65536]): per half, max(v, L + 1) - v is nonzero just where v <= L,
+// and v - min(v, U - 1) just where v >= U (neither borrows across the
+// halves); each, capped at 1, is added. L = 65535 and U = 0 take every
+// wire.
+template <int T, int H>
+__device__ __forceinline__ Flags wire_counts(const uint32_t (&v)[H], int32_t L, int32_t U) {
+  const uint32_t ll = static_cast<uint32_t>(L < 65535 ? L + 1 : 65535) * 0x10001u;
+  const uint32_t uu = static_cast<uint32_t>(U > 65535 ? 65535 : U > 0 ? U - 1 : 0) * 0x10001u;
+  uint32_t nl = 0, nh = 0;
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+    nl += __vminu2(__vmaxu2(v[r], ll) - v[r], 0x00010001u);
+    nh += __vminu2(v[r] - __vminu2(v[r], uu), 0x00010001u);
+  }
+  const int low = static_cast<int>(team_add<T>(__dp2a_lo(nl, 0x0101u, 0u)));
+  const int high = static_cast<int>(team_add<T>(__dp2a_lo(nh, 0x0101u, 0u)));
+  return {L < 65535 ? low : 2 * H * T, U > 0 ? high : 2 * H * T};
 }
 
 // Put `fill` in every wire outside the window [lo, hi) of the sorted
@@ -744,22 +818,34 @@ __device__ __forceinline__ void narrow(uint32_t (&v)[H], int lo, int hi, int32_t
   }
 }
 
-// The exact sum of every wire of the warp.
-template <int H>
+// The exact sum of every wire of the team.
+template <int T = 32, int H>
 __device__ __forceinline__ int32_t wire_total(const uint32_t (&v)[H]) {
   uint32_t s = 0;
 #pragma unroll
   for (int r = 0; r < H; ++r) s = __dp2a_lo(v[r], 0x0101u, s);
-  return static_cast<int32_t>(__reduce_add_sync(kFull, s));
+  return static_cast<int32_t>(team_add<T>(s));
 }
 
-// Exact sums of clamp(v, A, B) - a over every wire of the warp (A <= B),
+// The exact sum of every wire of the team, each clamped to [A, B].
+template <int T, int H>
+__device__ __forceinline__ int32_t wire_total(const uint32_t (&v)[H], int32_t A, int32_t B) {
+  const uint32_t aa = static_cast<uint32_t>(A) * 0x10001u;
+  const uint32_t bb = static_cast<uint32_t>(B) * 0x10001u;
+  uint32_t s = 0;
+#pragma unroll
+  for (int r = 0; r < H; ++r) s = __dp2a_lo(__vmaxu2(__vminu2(v[r], bb), aa), 0x0101u, s);
+  return static_cast<int32_t>(team_add<T>(s));
+}
+
+// Exact sums of clamp(v, A, B) - a over every wire of the team (A <= B),
 // two wires a register: the clamp and |d| by 16-bit SIMD (max - min has no
 // borrow across the halves), the 8-bit split products by __dp4a, the sum by
 // __dp2a. A wire whose value clamps to a adds 0: narrow() fills the wires
 // outside a window with its element n/2, which clamps to the step's anchor.
-// int32 holds them: 64H <= 2048 wires of at most 65535.
-template <int H>
+// int32 holds them: 2HT <= 2048 wires of at most 65535. kClamp = false
+// skips the clamp, for A = 0 and B = 65535.
+template <int T = 32, bool kClamp = true, int H>
 __device__ __forceinline__ SdSums<int32_t> wire_sums(const uint32_t (&v)[H], int32_t A, int32_t B,
                                                      int32_t a) {
   const uint32_t aa = static_cast<uint32_t>(A) * 0x10001u;
@@ -768,7 +854,7 @@ __device__ __forceinline__ SdSums<int32_t> wire_sums(const uint32_t (&v)[H], int
   uint32_t sc = 0, hh = 0, hl = 0, ll = 0;
 #pragma unroll
   for (int r = 0; r < H; ++r) {
-    const uint32_t c = __vmaxu2(__vminu2(v[r], bb), aa);
+    const uint32_t c = kClamp ? __vmaxu2(__vminu2(v[r], bb), aa) : v[r];
     const uint32_t d = __vmaxu2(c, cc) - __vminu2(c, cc);
     const uint32_t l8 = d & 0x00ff00ffu, h8 = __byte_perm(d, 0u, 0x4341);
     ll = __dp4a(l8, l8, ll);
@@ -777,10 +863,10 @@ __device__ __forceinline__ SdSums<int32_t> wire_sums(const uint32_t (&v)[H], int
     sc = __dp2a_lo(c, 0x0101u, sc);
   }
   SdSums<int32_t> s;
-  s.s1 = static_cast<int32_t>(__reduce_add_sync(kFull, sc)) - 64 * H * a;
-  s.shh = static_cast<int32_t>(__reduce_add_sync(kFull, hh));
-  s.shl = static_cast<int32_t>(__reduce_add_sync(kFull, hl));
-  s.sll = static_cast<int32_t>(__reduce_add_sync(kFull, ll));
+  s.s1 = static_cast<int32_t>(team_add<T>(sc)) - 2 * H * T * a;
+  s.shh = static_cast<int32_t>(team_add<T>(hh));
+  s.shl = static_cast<int32_t>(team_add<T>(hl));
+  s.sll = static_cast<int32_t>(team_add<T>(ll));
   return s;
 }
 
@@ -815,6 +901,104 @@ __device__ __forceinline__ Flags wire_flags(const uint32_t (&v)[H], int n, int32
               (high(tf) ? out : 0)};
 }
 
+// The first word of pixel k's slot: k * words, and 4 more for every 8
+// pixels before it, so that the slots of 8 neighbouring pixels (one 16-byte
+// chunk of a row) start 4 banks after the 8 before them.
+__host__ __device__ __forceinline__ int64_t slot_word(int k, int64_t words) {
+  return k * words + (k >> 3) * 4;
+}
+
+// Copy a block's columns into its pixels' slots: pixel k of the block at
+// ws + slot_word(k, words), frame i at its halfword i; `tile` pixels a
+// block, npx of them past the launch's first pixel px0. Each row gives
+// 2 * npx contiguous bytes. Where those are whole aligned 16-byte chunks
+// (8 pixels each), thread t loads the chunks t, t + blockDim, ... of the
+// pairs of rows in turn (a pair's chunks numbered up to the next power of
+// two, those past its last skipped), and stores frames 2j and 2j + 1 of a
+// pixel as one word (an odd F's last frame alone), so a warp reads whole
+// sectors and a block's loads are few and all in flight at once; else
+// thread t reads pixel t % tile of every (blockDim / tile)-th row from row
+// t / tile.
+__device__ __forceinline__ void stage_columns(const uint16_t* __restrict__ vals, int64_t ld,
+                                              uint32_t* ws, int64_t words, int f, int64_t px0,
+                                              int npx, int tile) {
+  const uint16_t* src = vals + px0;
+  if (npx % 8 == 0 &&
+      ((reinterpret_cast<uintptr_t>(src) | static_cast<uintptr_t>(ld) * 2) & 15) == 0) {
+    const int chunks = npx / 8, lg = 32 - __clz(chunks - 1);
+    for (int c = threadIdx.x; c < (f + 1) / 2 << lg; c += blockDim.x) {
+      const int j = c >> lg, g = c & ((1 << lg) - 1);
+      if (g >= chunks) continue;
+      const uint16_t* row = src + 2 * j * ld + 8 * g;
+      const uint4 a = *reinterpret_cast<const uint4*>(row);
+      const uint32_t wa[4] = {a.x, a.y, a.z, a.w};
+      if (2 * j + 1 < f) {
+        const uint4 b = *reinterpret_cast<const uint4*>(row + ld);
+        const uint32_t wb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          ws[slot_word(8 * g + k, words) + j] =
+              __byte_perm(wa[k / 2], wb[k / 2], k % 2 ? 0x7632 : 0x5410);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          reinterpret_cast<uint16_t*>(ws + slot_word(8 * g + k, words))[2 * j] =
+              static_cast<uint16_t>(wa[k / 2] >> (16 * (k % 2)));
+      }
+    }
+    return;
+  }
+  const int k = threadIdx.x & (tile - 1);
+  if (k >= npx) return;
+  const int first = threadIdx.x / tile;
+  const int rows = blockDim.x / tile;
+  const int64_t step = rows * ld;
+  src += first * ld + k;
+  uint16_t* dst = reinterpret_cast<uint16_t*>(ws + slot_word(k, words));
+  for (int i = first; i < f; i += rows, src += step) dst[i] = *src;
+}
+
+// Read a lane's run of 2H halfwords from src into its H registers, 16
+// bytes a load where the run is a multiple of 16 bytes: register r takes
+// word r, halfwords 2r and 2r + 1 (any order will do for a run about to be
+// sorted).
+template <int H>
+__device__ __forceinline__ void load_run(uint32_t (&v)[H], const uint32_t* src) {
+  if constexpr (H % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < H / 4; ++q) {
+      const uint4 w = reinterpret_cast<const uint4*>(src)[q];
+      v[4 * q] = w.x;
+      v[4 * q + 1] = w.y;
+      v[4 * q + 2] = w.z;
+      v[4 * q + 3] = w.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < H; ++r) v[r] = src[r];
+  }
+}
+
+// Write the lane's run of sorted wires to its 2H halfwords of dst, 16
+// bytes a store where the run is a multiple of 16 bytes: word k of the run
+// holds wires 2k and 2k + 1.
+template <int H>
+__device__ __forceinline__ void store_run(const uint32_t (&v)[H], uint32_t* dst) {
+  auto word = [&](int k) -> uint32_t {
+    return 2 * k < H ? __byte_perm(v[2 * k], v[2 * k + 1], 0x5410)
+                     : __byte_perm(v[2 * k - H], v[2 * k + 1 - H], 0x7632);
+  };
+  if constexpr (H % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < H / 4; ++q)
+      reinterpret_cast<uint4*>(dst)[q] =
+          make_uint4(word(4 * q), word(4 * q + 1), word(4 * q + 2), word(4 * q + 3));
+  } else {
+#pragma unroll
+    for (int k = 0; k < H; ++k) dst[k] = word(k);
+  }
+}
+
 // ----------------------------------------------------------- launching
 
 using KernelFn = void (*)(const uint16_t*, int64_t, uint16_t*, Outputs, int, int64_t, float,
@@ -826,9 +1010,10 @@ using KernelFn = void (*)(const uint16_t*, int64_t, uint16_t*, Outputs, int, int
 // kernel == nullptr for a tile the kernel does not take; and its form.
 // Each kernel's plan function, Plan(f, tile, scratch, p), is the one place
 // its layout is written down: the launch and the plan query both read it.
-// Where a launch sorts its columns: in registers, in shared memory, or in
-// the device-memory scratch (plan_query sets that one for the scratch path).
-enum Form : int { kShared = 0, kWires = 1, kScratch = 2 };
+// Where a launch sorts its columns: in registers (a thread's or a warp's),
+// in shared memory, in the device-memory scratch (plan_query sets that one
+// for the scratch path), or in the registers of a team of lanes.
+enum Form : int { kShared = 0, kWires = 1, kScratch = 2, kTeam = 3 };
 
 struct Plan {
   KernelFn kernel;

@@ -132,36 +132,6 @@ __host__ __device__ __forceinline__ int64_t pixel_words(int64_t f) {
   return (f + 1) / 2 + 3 * ((f + 31) / 32);
 }
 
-// Copy the block's columns into its workspaces: pixel k of the block at
-// ws + k * words, frame i at its halfword i. Each row gives 2 * tile
-// contiguous bytes. Where those are one aligned 16-byte chunk (8 pixels),
-// thread t loads row t, t + blockDim, ... whole, so a block's loads are
-// few and all in flight at once; else thread t reads pixel t % tile of
-// every 32nd row from row t / tile.
-__device__ __forceinline__ void stage_columns(const uint16_t* __restrict__ vals, int64_t ld,
-                                              uint32_t* ws, int64_t words, int f, int64_t px0,
-                                              int npx, int tile) {
-  auto* dst = reinterpret_cast<uint16_t*>(ws);
-  const uint16_t* src = vals + px0;
-  if (npx == 8 && ((reinterpret_cast<uintptr_t>(src) | static_cast<uintptr_t>(ld) * 2) & 15) == 0) {
-    for (int i = threadIdx.x; i < f; i += blockDim.x) {
-      const uint4 q = *reinterpret_cast<const uint4*>(src + i * ld);
-      const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        dst[2 * k * words + i] = static_cast<uint16_t>(w[k / 2] >> (16 * (k % 2)));
-    }
-    return;
-  }
-  const int k = threadIdx.x & (tile - 1);
-  if (k >= npx) return;
-  const int first = threadIdx.x / tile;
-  const int64_t step = 32 * ld;
-  src += first * ld + k;
-  dst += 2 * k * words;
-  for (int i = first; i < f; i += 32, src += step) dst[i] = *src;
-}
-
 template <bool kScratch, typename Acc>
 __global__ void __launch_bounds__(256)
     winsorized_kernel(const uint16_t* __restrict__ vals, int64_t ld,
@@ -221,26 +191,6 @@ __device__ __forceinline__ Result winsor_wires(uint32_t (&v)[H], const Column<in
   if (win.degen) return exact_masked<int32_t>(x, f, m, siglow, sighigh, WinsorStats{anchor});
   narrow(v, win.lo, win.hi, 0);
   return {round_mean<int32_t>(wire_total(v), win.hi - win.lo), 0, win.lo, f - win.hi};
-}
-
-// Write the lane's run of sorted wires to its 2H halfwords of dst, 16
-// bytes a store where the run is a multiple of 16 bytes: word k of the run
-// holds wires 2k and 2k + 1.
-template <int H>
-__device__ __forceinline__ void store_run(const uint32_t (&v)[H], uint32_t* dst) {
-  auto word = [&](int k) -> uint32_t {
-    return 2 * k < H ? __byte_perm(v[2 * k], v[2 * k + 1], 0x5410)
-                     : __byte_perm(v[2 * k - H], v[2 * k + 1 - H], 0x7632);
-  };
-  if constexpr (H % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < H / 4; ++q)
-      reinterpret_cast<uint4*>(dst)[q] =
-          make_uint4(word(4 * q), word(4 * q + 1), word(4 * q + 2), word(4 * q + 3));
-  } else {
-#pragma unroll
-    for (int k = 0; k < H; ++k) dst[k] = word(k);
-  }
 }
 
 // F <= 64H: the column sorted and walked in the warp's registers.

@@ -17,16 +17,19 @@ on the CPU route) and its degenerate pixels are counted too
 
 How the kernels own pixels (the C plans, ``csrc/reject_<name>.cu``):
 median gives each pixel a thread and its column a stride of shared
-memory; sigma, percentile and sigmedian do so too, but sort a column of
+memory; percentile and sigmedian do so too, but sort a column of
 F <= 128 in registers (percentile then needs no shared memory at all);
-winsorized gives each pixel a warp, ``tile`` pixels a block, and up to
-F = 2048 keeps the column in the warp's registers. Each kernel's C plan
-is the one place its layout is written down: ``launch_plan`` asks it for
-the largest tile whose shared memory fits in the 227 KB a block may use,
-or, where none fits, for the device-memory scratch copy the kernel works
-on instead, so every F runs on the card. The plan names the form a
-launch takes: ``wires`` (the column sorted in registers), ``shared`` (in
-shared memory) or ``scratch``.
+sigma gives each pixel of F <= 128 a team of one or two lanes, which sorts
+and clips the column in their registers, and past that a thread; winsorized
+gives each pixel a warp, ``tile`` pixels a block, and up to F = 2048
+keeps the column in the warp's registers. Each kernel's C plan is the
+one place its layout is written down: ``launch_plan`` asks it for the
+largest tile whose shared memory fits in the 227 KB a block may use, or,
+where none fits, for the device-memory scratch copy the kernel works on
+instead, so every F runs on the card. The plan names the form a launch
+takes: ``wires`` (the column sorted in a thread's or a warp's
+registers), ``team`` (in the registers of a team of lanes), ``shared``
+(in shared memory) or ``scratch``.
 
 ``reject_stack`` is the one place that decides which code stacks a
 rejection. A CUDA tensor always goes to its kernel, and a failed build or
@@ -58,7 +61,7 @@ SMEM_LIMIT = None
 #: further launches
 SCRATCH_BYTES = 1 << 30
 #: the forms of a launch, by the code its C plan reports
-FORMS = ("shared", "wires", "scratch")
+FORMS = ("shared", "wires", "scratch", "team")
 #: the rejections without a kernel, stacked by ``reject_and_mean``
 _NO_KERNEL = ("none", "sigma_masked", "linearfit")
 #: the window form and the exact masked loop of the rejections whose

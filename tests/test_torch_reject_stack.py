@@ -399,18 +399,25 @@ def cuda_device():
 
 
 #: (rejection, F) cases on the card: every kernel at F in {2, ..., 1000};
-#: sigma and winsorized also at the borders of their designs (sigma's
-#: register sort of 32, 64 or 128 wires up to F = 128, winsorized's
-#: 32-slot chunks and mask words); median, percentile and sigmedian at the
-#: borders of their register sorts; and past the shared-memory bound (the
-#: device-memory scratch path)
+#: sigma and winsorized also at the borders of their designs (sigma's team
+#: form up to F = 128, winsorized's 32-slot chunks and mask words); sigma,
+#: median, percentile and sigmedian at the borders of the register sorts
+#: of 32, 64 or 128 wires, and sigma at every F where its team form's
+#: lanes a pixel (T) or registers a lane (H) change; and past the
+#: shared-memory bound (the device-memory scratch path)
 CASE_FS = (2, 3, 5, 12, 25, 64, 100, 256, 1000)
 BORDER_FS = (63, 65, 127, 128, 129, 511, 512, 1024, 1025)
 WIRE_BORDER_FS = (31, 32, 33, 63, 64, 65, 127, 128, 129)
+#: the last F of each (T, H) of sigma's team form and the first of the
+#: next: T = 1 lane with 2H = 4, 8, 16, 32 and 64 wires up to F = 4, 8,
+#: 16, 32 and 64, then T = 2 lanes of 64 wires up to 128
+TEAM_BORDER_FS = (4, 5, 8, 9, 16, 17, 32, 33, 64, 65, 128, 129)
 CUDA_CASES = ([(r, f) for r in KERNELS for f in CASE_FS]
               + [(r, f) for r in ("sigma", "winsorized") for f in BORDER_FS]
               + [(r, f) for r in ("median", "percentile", "sigmedian")
                  for f in WIRE_BORDER_FS if f not in CASE_FS]
+              + [("sigma", f) for f in sorted(set(WIRE_BORDER_FS + TEAM_BORDER_FS)
+                                             - set(CASE_FS + BORDER_FS))]
               + [(r, 4000) for r in ("sigma", "median", "percentile", "sigmedian")]
               + [("winsorized", 2000)])
 
@@ -419,6 +426,9 @@ CUDA_CASES = ([(r, f) for r in KERNELS for f in CASE_FS]
 #: the wires form's 8-warp blocks, 4 to an SM (chip_smoke.py holds the
 #: same floor)
 MIN_WARPS_F1000 = 32
+#: least warps the sigma kernel keeps resident per SM at F = 100: the team
+#: form's 8-warp blocks, 3 to an SM (chip_smoke.py holds the same floor)
+MIN_WARPS_SIGMA_F100 = 24
 
 
 def launched(kernel: str) -> int:
@@ -464,7 +474,9 @@ def test_cuda_launch_plan(cuda_device):
         plan = rs.launch_plan(rejection, f)
         return None if plan.scratch else plan.tile
 
+    # sigma at F = 100: a team of 2 lanes a pixel, 128 pixels a block
     assert tile("sigma", 100) == 128
+    assert rs.launch_plan("sigma", 100).warps >= MIN_WARPS_SIGMA_F100
     # the median and percentile run their whole bodies in registers up to
     # F = 128: no shared memory; sigmedian writes its sorted column there, a
     # thread at stride tile + 2
@@ -483,8 +495,10 @@ def test_cuda_launch_plan(cuda_device):
     for f in (1, 1000, 2048):
         assert rs.launch_plan("winsorized", f).form == "wires", f
     assert rs.launch_plan("winsorized", 2049).form == "shared"
-    # sigma sorts in registers up to F = 128
-    assert rs.launch_plan("sigma", 128).form == "wires"
+    # sigma sorts and clips in the registers of a team of lanes up to
+    # F = 128, past it a thread a pixel in shared memory
+    for f in (1, 50, 100, 128):
+        assert rs.launch_plan("sigma", f).form == "team", f
     assert rs.launch_plan("sigma", 129).form == "shared"
     # past the shared-memory bound the kernels run on a device-memory
     # scratch copy: no F is refused
@@ -497,6 +511,38 @@ def test_cuda_launch_plan(cuda_device):
     assert tile("winsorized", 98000) is None
     assert rs.launch_plan("winsorized", 98000).form == "scratch"
     assert rs.launch_plan("winsorized", 1000).warps >= MIN_WARPS_F1000
+
+
+#: sigma's team form at each of its (T, H) and at the deep-sky F = 100
+TEAM_FS = (1, 4, 5, 8, 9, 16, 17, 32, 33, 50, 64, 65, 100, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", TEAM_FS)
+def test_cuda_sigma_team_aligned_rows(cuda_device, F):
+    """The team form on P = 8192 + 72 pixels: rows of a multiple of 16
+    bytes, so every block stages its columns by 16-byte row loads, as the
+    deep-sky cell's 2^24 pixels are staged, the last block a short one of
+    72 pixels (``test_cuda_kernel_matches_plain``'s P = 8192 + 77
+    stages by 2-byte loads). One degenerate column in three: mean,
+    degenerate flag and both counters equal the plain version's, and the
+    launch is counted under the form."""
+    p = 8192 + 72
+    vals = frames_from_numpy(make_vals(F, p, degen_every=3) if F >= 4 else
+                             np.random.default_rng(F).integers(
+                                 0, 65536, (F, p)).astype(np.uint16), cuda_device)
+    plan = rs.launch_plan("sigma", F, p)
+    assert plan.form == "team" and p % plan.tile == 72
+    before = counters().get("reject.form.sigma.team", 0)
+    got = rs.reject_cuda(vals, "sigma", 2.5, 2.5)
+    torch.cuda.synchronize()
+    assert counters()["reject.form.sigma.team"] == before + 1
+    want = rs.reject_plain(vals, "sigma", 2.5, 2.5)
+    for name, g, w in zip(("mean", "degen", "rejl", "rejh"), got, want):
+        np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=name)
+    # the geomspace columns freeze and take the exact re-run (at F = 5 at
+    # these sigmas none does)
+    assert int(got[1].sum()) > 0 or F == 5
 
 
 @pytest.mark.cuda
