@@ -88,12 +88,17 @@ exits non-zero without printing a result:
    a. linearfit: stack_frames(mean, linearfit (3, 3), no normalization) on
       config 2's frames. The image and the rejection totals must equal the
       same (F, P) data, built with other code, put through reject_linearfit
-      in 2^20-pixel chunks with every knife-edge pixel settled by the NumPy
-      oracle; that per-pixel result (mean and both counters) must equal
-      the oracle (verify/oracle.py:c_reject_block) on every knife-edge
-      pixel and on 2,000 seeded others. Prints the knife-edge pixels, the
-      seconds of their host re-run, frames/s, and reject_linearfit's ms at
-      50 x 4.19M beside its device-memory bound and torch.sort's ms;
+      in 2^20-pixel chunks with every knife-edge pixel settled by the
+      per-pixel oracle (verify/oracle.py:c_reject_block); the batched
+      float64 settle, on the card and on the host (linearfit_exact), must
+      give the oracle's mean and both counters on every knife-edge pixel;
+      reject_stack(linearfit), the main path's route, on the whole flat
+      must give the same words and counters on every pixel; the fit must
+      equal the oracle on 2,000 seeded others. Prints the knife-edge
+      pixels, the seconds of the stack's fix-up, of the route, of the
+      batched settle on the card and on the host and of the oracle a
+      pixel, frames/s, and reject_linearfit's ms at 50 x 4.19M beside its
+      device-memory bound and torch.sort's ms;
    b. ECC: 500 frames of 480 x 640 in the 8-bit range (a disc with
       detail, peak under 255, 2 counts of noise, whole-pixel drifts in
       [-20, 20]) written as a SER file, registered with register_ecc (the
@@ -1197,6 +1202,21 @@ def phase8(rs, rec, dev, card, config2, config3):
                         *config2[:2], None, config2[2])
 
 
+def oracle_words(cols: np.ndarray, sig):
+    """verify/oracle.py:c_reject_block's linearfit on every column of a
+    (F, K) uint16 array: (mean, rejlow, rejhigh) int64 arrays, the mean
+    the survivors' rounded to a WORD."""
+    from siriltpu_torch.utils.rounding import np_round_to_word
+    from siriltpu_torch.verify.oracle import c_reject_block
+
+    out = np.zeros((3, cols.shape[1]), np.int64)
+    for j in range(cols.shape[1]):
+        surv, rej = c_reject_block(cols[:, j], "linearfit", sig)
+        mean = surv.astype(np.float64).sum() / surv.size if surv.size else 0.0
+        out[:, j] = int(np_round_to_word(mean)), rej[0], rej[1]
+    return out
+
+
 def phase9a(dev, card):
     """linearfit on config 2: stack_frames against reject_linearfit in
     chunks plus the NumPy oracle, and the timing that decides whether
@@ -1204,7 +1224,9 @@ def phase9a(dev, card):
     import torch
     from siriltpu_torch.ops import rejection
     from siriltpu_torch.ops.rejection import (_mean_of_survivors,
-                                              linearfit_exact, reject_linearfit)
+                                              linearfit_exact, linearfit_settle,
+                                              reject_linearfit)
+    from siriltpu_torch.ops.cuda.reject_stack import reject_stack
     from siriltpu_torch.stacking import api
     from siriltpu_torch.utils.interop import frames_from_numpy, u16_to_i32
 
@@ -1235,10 +1257,34 @@ def phase9a(dev, card):
         mean[a:a + CHUNK] = u16_to_i32(_mean_of_survivors(v, valid))
     del valid, v
     kidx = torch.nonzero(knife)[:, 0]
+    kcols = flat.view(torch.int16)[:, kidx].cpu().numpy().view(np.uint16)
     t0 = time.perf_counter()
-    km, kl, kh = linearfit_exact(
-        flat.view(torch.int16)[:, kidx].cpu().numpy().view(np.uint16), sig)
-    oracle_s = time.perf_counter() - t0
+    km, kl, kh = oracle_words(kcols, sig)
+    per_pixel_s = (time.perf_counter() - t0) / max(1, kidx.numel())
+    # the batched float64 settle, on the host (linearfit_exact, its NumPy
+    # face) and on the card as reject_stack runs it, each against the
+    # oracle on every knife-edge pixel
+    t0 = time.perf_counter()
+    hm, hl, hh = linearfit_exact(kcols, sig)
+    exact_s = time.perf_counter() - t0
+    herrs = [int(np.abs(t.astype(np.int64) - o).max(initial=0))
+             for t, o in ((hm, km), (hl, kl), (hh, kh))]
+    if any(herrs):
+        fail(f"phase9a: linearfit_exact vs c_reject_block on {kidx.numel()} "
+             f"knife-edge pixels: max|diff| mean/rejl/rejh {herrs}")
+    cols = flat.view(torch.int16)[:, kidx].view(torch.uint16)
+    linearfit_settle(cols[:, :8], sig)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dm, dl, dh = linearfit_settle(cols, sig)
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t0
+    derrs = [int(np.abs(t.cpu().numpy().astype(np.int64) - o).max(initial=0))
+             for t, o in ((dm.view(torch.int16).to(torch.int32) & 0xFFFF, km),
+                          (dl, kl), (dh, kh))]
+    if any(derrs):
+        fail(f"phase9a: linearfit_settle on the card vs c_reject_block on "
+             f"{kidx.numel()} knife-edge pixels: max|diff| mean/rejl/rejh {derrs}")
     flips = int((mean[kidx].cpu().numpy() != km).sum())
     for dst, src in ((mean, km), (rl, kl), (rh, kh)):
         dst[kidx] = torch.from_numpy(src.astype(np.int32)).to(dev)
@@ -1250,13 +1296,29 @@ def phase9a(dev, card):
         fail(f"phase9a: stack_frames(linearfit) vs the chunked fit with the "
              f"oracle on {kidx.numel()} knife-edge pixels (the stack re-ran "
              f"{knife_n}): max|diff| image/rejlow/rejhigh {errs}")
+    # the main path's route (register_and_stack's): reject_stack on the
+    # whole (F, P) flat, every word and counter against the same
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sm, sl, sh = reject_stack(flat, "linearfit", *sig, with_counters=True)
+    torch.cuda.synchronize()
+    route_s = time.perf_counter() - t0
+    route_knife = counted("linearfit.knife")
+    rerrs = [int((u16_to_i32(sm) - mean).abs().max()), int((sl - rl).abs().max()),
+             int((sh - rh).abs().max())]
+    if any(rerrs):
+        fail(f"phase9a: reject_stack(linearfit) on {f}x{h * w} vs the chunked "
+             f"fit with the oracle on {kidx.numel()} knife-edge pixels (the "
+             f"route settled {route_knife}): max|diff| mean/rejl/rejh {rerrs}")
+    del sm, sl, sh
     # the f32 fit off the knife edge against the oracle, on seeded pixels
     rng = np.random.default_rng(9)
     sample = torch.from_numpy(rng.choice(h * w, LF_SAMPLE, replace=False)).to(dev)
     sample = sample[~knife[sample]]
-    om, ol, oh = linearfit_exact(
+    om, ol, oh = oracle_words(
         flat.view(torch.int16)[:, sample].cpu().numpy().view(np.uint16), sig)
-    serrs = [int(np.abs(t[sample].cpu().numpy() - o.astype(np.int64)).max())
+    serrs = [int(np.abs(t[sample].cpu().numpy() - o).max())
              for t, o in ((mean, om), (rl, ol), (rh, oh))]
     if any(serrs):
         fail(f"phase9a: reject_linearfit vs the oracle on {sample.numel()} "
@@ -1268,10 +1330,14 @@ def phase9a(dev, card):
           f"vs c_reject_block on {kidx.numel()} knife-edge pixels (the f32 fit "
           f"alone differs on {flips}) and {sample.numel()} others "
           f"max|diff|={max(serrs)}; its one run {sec:.3f} s, {f / sec:.3f} "
-          f"frames/s, of which the host re-run of {knife_n} knife-edge "
-          f"pixels {stages.get('stack.linearfit_fixup', 0.0):.3f} s (the oracle "
-          f"alone on as many here "
-          f"{oracle_s:.3f} s) [{card}]", flush=True)
+          f"frames/s, of which the fix-up of {knife_n} knife-edge pixels "
+          f"{stages.get('stack.linearfit_fixup', 0.0):.3f} s (their host "
+          f"normalization and the settle on the card); reject_stack(linearfit) "
+          f"on the whole flat {route_s:.3f} s, {route_knife} settled, every "
+          f"word and counter equal; the batched settle of {kidx.numel()} "
+          f"knife-edge columns on the card {settle_s:.4f} s and on the host "
+          f"{exact_s:.3f} s, both equal to c_reject_block "
+          f"({per_pixel_s * 1e3:.3f} ms a pixel) [{card}]", flush=True)
     del mean, rl, rh, knife
     torch.cuda.empty_cache()
 

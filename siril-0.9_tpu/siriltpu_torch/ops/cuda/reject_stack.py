@@ -33,9 +33,14 @@ registers), ``team`` (in the registers of a team of lanes), ``shared``
 
 ``reject_stack`` is the one place that decides which code stacks a
 rejection. A CUDA tensor always goes to its kernel, and a failed build or
-launch raises. A CPU tensor goes to the kernel's plain version. A
-rejection without a kernel (none, sigma_masked, linearfit) runs
-``reject_and_mean`` in plain PyTorch on any device.
+launch raises. A CPU tensor goes to the kernel's plain version. None and
+sigma_masked, which have no kernel, run ``reject_and_mean`` in plain
+PyTorch on any device. Linearfit runs its hybrid on any device: the
+float32 fit (``reject_linearfit``), then its knife-edge pixels, gathered
+on the device, settled there in float64 by ``linearfit_settle`` (a
+``stack.linearfit_fixup`` span, counted in ``linearfit.knife``), so that
+every word and counter is Siril's. The settle is looked up in this
+module when it runs, so that a caller may wrap it.
 """
 
 from __future__ import annotations
@@ -45,8 +50,9 @@ from typing import NamedTuple
 
 import torch
 
-from siriltpu_torch.ops.rejection import (_mean_of_survivors, masked_median,
-                                          reject_and_mean,
+from siriltpu_torch.ops.rejection import (_mean_of_survivors, linearfit_settle,
+                                          masked_median, reject_and_mean,
+                                          reject_linearfit,
                                           reject_percentile, reject_sigma,
                                           reject_sigma_window,
                                           reject_sigmedian, reject_winsorized,
@@ -62,7 +68,8 @@ SMEM_LIMIT = None
 SCRATCH_BYTES = 1 << 30
 #: the forms of a launch, by the code its C plan reports
 FORMS = ("shared", "wires", "scratch", "team")
-#: the rejections without a kernel, stacked by ``reject_and_mean``
+#: the rejections without a kernel: linearfit's hybrid, and those
+#: stacked by ``reject_and_mean``
 _NO_KERNEL = ("none", "sigma_masked", "linearfit")
 #: the window form and the exact masked loop of the rejections whose
 #: kernels settle degenerate pixels
@@ -138,6 +145,31 @@ def reject_plain(vals: torch.Tensor, rejection: str, siglow: float,
     return _mean_of_survivors(v, valid), z, rejl, rejh
 
 
+def linearfit_hybrid(vals: torch.Tensor, siglow: float, sighigh: float,
+                     columns=None):
+    """The linearfit hybrid of (F, P) values on their device: the float32
+    fit decides every pixel, then the pixels it flags as knife-edges are
+    found in one ``nonzero`` (a host sync that sizes the gather), their
+    (F, K) WORD-valued columns settled by ``linearfit_settle`` and the
+    words and counters scattered back. ``columns(kidx)`` gives those
+    columns on the device; by default they are ``vals``' own, which must
+    then be uint16. (mean uint16, rejl int32, rejh int32), each (P,)."""
+    valid, v, rejl, rejh, knife = reject_linearfit(vals, siglow, sighigh)
+    mean = _mean_of_survivors(v, valid)
+    del valid, v
+    with span("stack.linearfit_fixup", device=vals.device) as sp:
+        kidx = torch.nonzero(knife)[:, 0]
+        k = int(kidx.numel())
+        sp.set(K=k)
+        count("linearfit.knife", k)
+        if k:
+            cols = (columns(kidx) if columns is not None else
+                    vals.view(torch.int16).index_select(1, kidx).view(torch.uint16))
+            km, rejl[kidx], rejh[kidx] = linearfit_settle(cols, (siglow, sighigh))
+            mean.view(torch.int16)[kidx] = km.view(torch.int16)
+    return mean, rejl, rejh
+
+
 def reject_cuda(vals: torch.Tensor, rejection: str, siglow: float,
                 sighigh: float):
     """Launch a CUDA rejection kernel on the current stream: (mean uint16,
@@ -202,13 +234,17 @@ def reject_stack(vals: torch.Tensor, rejection: str, siglow: float,
     ``reject_and_mean`` where the fused JAX output does not. For F <= 4
     every sigma and winsorized pixel is degenerate (the JAX package sends
     such stacks to its HBM path instead): the result is the same, only
-    slower. The CUDA route makes no host sync. A rejection without a
-    kernel runs ``reject_and_mean`` on any device."""
+    slower. The CUDA route makes no host sync. None and sigma_masked run
+    ``reject_and_mean`` on any device; linearfit syncs once a pass of
+    its fit and once to gather its knife-edge pixels."""
     siglow, sighigh = float(siglow), float(sighigh)
     _check(vals, rejection, KERNELS + _NO_KERNEL)
     with span("stack.reject", device=vals.device, shape=tuple(vals.shape),
               rejection=rejection) as sp:
-        if rejection in _NO_KERNEL:
+        if rejection == "linearfit":
+            mean, rejl, rejh = linearfit_hybrid(vals, siglow, sighigh)
+            sp.set(form="hybrid")
+        elif rejection in _NO_KERNEL:
             mean, rejl, rejh = reject_and_mean(vals, rejection, (siglow, sighigh))
             sp.set(form="plain")
         elif vals.device.type == "cuda":
@@ -225,5 +261,5 @@ def reject_stack(vals: torch.Tensor, rejection: str, siglow: float,
     return (mean, rejl, rejh) if with_counters else mean
 
 
-__all__ = ["reject_stack", "reject_cuda", "reject_plain", "launch_plan",
-           "Plan"]
+__all__ = ["reject_stack", "reject_cuda", "reject_plain", "linearfit_hybrid",
+           "launch_plan", "Plan"]

@@ -41,7 +41,8 @@ import torch
 from siriltpu_torch.ops.sortnet import sort_axis0
 from siriltpu_torch.utils.interop import (i32_to_u16, to_float32, u16_to_i32,
                                           u16_to_numpy)
-from siriltpu_torch.utils.rounding import np_round_to_word, round_to_word_f
+from siriltpu_torch.utils.rounding import round_to_word_f
+from siriltpu_torch.utils.timing import count
 
 Tensor = torch.Tensor
 
@@ -329,8 +330,8 @@ def reject_winsorized(vals: Tensor, siglow: float, sighigh: float):
 
 #: residual/sigma ratios closer than this to the clip threshold are
 #: knife-edges the f32 fit cannot decide reliably against the C's f64
-#: math; such pixels are flagged for the exact host re-run
-#: (linearfit_hybrid_block). The f32 relative error of the fit+ratio chain
+#: math; such pixels are flagged for the exact float64 settle
+#: (linearfit_settle). The f32 relative error of the fit+ratio chain
 #: is ~F * 2**-24 ~ 1e-5 at F = 100; 1e-4 leaves a tenfold guard band,
 #: which also absorbs the order of the f32 sums over F, while flagging
 #: next to nothing on real (continuous-noise) data.
@@ -343,8 +344,9 @@ def reject_linearfit(vals: Tensor, siglow: float, sighigh: float):
 
     Returns ``(valid, sorted_vals, rejlow, rejhigh, knife)``: ``knife``
     marks pixels whose clip decision came within LINEARFIT_KNIFE_EPS of
-    the threshold at any pass (re-run those through the f64 oracle for
-    bit-exactness, see linearfit_hybrid_block)."""
+    the threshold at any pass (settle those in float64 for bit-exactness,
+    see linearfit_settle). Its passes are counted (``linearfit.passes``,
+    each one host check of ``done.all()``)."""
     f, p = vals.shape
     dev = vals.device
     sv_orig = to_float32(sort_axis0(vals))
@@ -405,6 +407,7 @@ def reject_linearfit(vals: Tensor, siglow: float, sighigh: float):
         r = torch.where(upd, r_new, r)
         done = done | (removed == 0) | (n_new <= 3)
         it += 1
+    count("linearfit.passes", it)
     return valid, sv_orig, rejl, rejh, knife
 
 
@@ -649,8 +652,8 @@ def reject_and_mean(vals: Tensor, rejection: str, sig=(3.0, 3.0)):
     break are re-run through the reference-exact masked formulation.
     ``sigma_masked`` runs the masked loop for everything, and so do
     percentile, sigmedian and winsorized, as in the JAX package.
-    ``linearfit`` is the plain f32 fit, without the exact re-run of its
-    knife-edge pixels (linearfit_hybrid_block has it)."""
+    ``linearfit`` is the plain f32 fit, as in the JAX package, without the
+    float64 settle of its knife-edge pixels (``reject_stack`` has it)."""
     siglow, sighigh = float(sig[0]), float(sig[1])
     if rejection == "sigma":
         sv = sort_axis0(vals)
@@ -676,51 +679,126 @@ def reject_and_mean(vals: Tensor, rejection: str, sig=(3.0, 3.0)):
     return _mean_of_survivors(v, valid), rejl, rejh
 
 
+def _gsl_x_moments(f: int, device) -> Tensor:
+    """gsl_fit_linear's moments of x = 0 .. n-1 for every n = 1 .. f, which
+    depend on n alone: row 0 the running mean m_x, row 1 the running mean
+    of dx * dx, (2, f) float64, entry n - 1 for n values. The NumPy float64
+    operations of ``verify.oracle.gsl_fit_linear``, one at a time, over
+    every n at once."""
+    n = np.arange(1, f + 1)
+    m_x = np.zeros(f)
+    m_dx2 = np.zeros(f)
+    for i in range(f):
+        step = m_x + (np.float64(i) - m_x) / np.float64(i + 1.0)
+        m_x = np.where(i < n, step, m_x)
+    for i in range(f):
+        dx = np.float64(i) - m_x
+        step = m_dx2 + (dx * dx - m_dx2) / np.float64(i + 1.0)
+        m_dx2 = np.where(i < n, step, m_dx2)
+    return torch.from_numpy(np.stack([m_x, m_dx2])).to(device)
+
+
+def linearfit_settle(columns: Tensor, sig):
+    """LINEARFIT (stacking.c:1750-1783) of every column of a (F, K)
+    WORD-valued tensor, in float64 and in the C's order of operations, so
+    that each word and counter is ``verify.oracle.c_reject_block``'s: the
+    exact path for the pixels whose float32 fit came within
+    LINEARFIT_KNIFE_EPS of a clip (``reject_stack``, the block loop).
+
+    Vectorised over the K columns; loops over the frames and the passes
+    (one host check a pass). A pass is the C's: the survivors, kept
+    packed at the head of each column in sorted order; gsl_fit_linear's
+    running means and centred moments in frame order (those of x, which
+    depend on N alone, from ``_gsl_x_moments``); sigma as the sum of
+    |residual| in frame order over N; line_clipping's left-to-right
+    arithmetic, low before high; the flag scan that breaks once N - r <=
+    4, r counted across passes; the removal that reads the positional
+    buffer at every rank, stale flags past the break included; and the
+    loop test n > 0 && N > 3. No multiply-add is fused, and every division
+    is by a tensor on the device (CUDA divides by a host scalar through
+    its reciprocal). Returns (mean uint16 (K,), rejlow int32 (K,), rejhigh
+    int32 (K,)) on the columns' device: round_to_WORD of the survivors'
+    mean."""
+    f, k = columns.shape
+    dev = columns.device
+    siglow, sighigh = float(sig[0]), float(sig[1])
+    if columns.dtype == torch.uint16:
+        columns = u16_to_i32(columns)
+    y = torch.sort(columns.to(torch.float64), dim=0).values
+    rows = torch.arange(f, device=dev)[:, None]
+    x = rows.to(torch.float64)
+    inf = torch.full((1, 1), float("inf"), dtype=torch.float64, device=dev)
+    moments = _gsl_x_moments(f, dev)
+    n = torch.full((k,), f, dtype=torch.int64, device=dev)
+    r = torch.zeros_like(n)
+    rejl = torch.zeros(k, dtype=torch.int32, device=dev)
+    rejh = torch.zeros_like(rejl)
+    buf = torch.zeros((f, k), dtype=torch.int8, device=dev)
+    active = torch.ones(k, dtype=torch.bool, device=dev)
+    it = 0
+    # one host sync per pass: the loop runs until every column is done
+    while it < MAX_ITERS and bool(active.any()):
+        live = rows < n[None, :]
+        # a dead row divides by inf: its step adds +-0 to the running mean
+        den = torch.where(live, x + 1.0, inf)
+        m_x, m_dx2 = moments[:, n - 1]
+        m_y = torch.zeros(k, dtype=torch.float64, device=dev)
+        for i in range(f):
+            m_y = m_y + (y[i] - m_y) / den[i]
+        dxdy = (x - m_x[None, :]) * (y - m_y[None, :])
+        m_dxdy = torch.zeros_like(m_y)
+        for i in range(f):
+            m_dxdy = m_dxdy + (dxdy[i] - m_dxdy) / den[i]
+        a = m_dxdy / m_dx2
+        b = m_y - m_x * a
+        ax = a[None, :] * x
+        fit = ax + b[None, :]
+        resid = torch.where(live, torch.abs(y - fit), 0.0)
+        total = torch.zeros_like(m_y)
+        for i in range(f):
+            total = total + resid[i]
+        sigma = (total / n.to(torch.float64))[None, :]
+        low = ((fit - y) / sigma > siglow) & live
+        high = (((y - ax) - b[None, :]) / sigma > sighigh) & live & ~low
+        flag = low | high
+        # the scan visits rank i unless N - r <= 4 held after an earlier one
+        ends = live & (n[None, :] - (r[None, :] + torch.cumsum(flag, dim=0)) <= 4)
+        seen = live & (torch.cumsum(ends, dim=0) - ends.to(torch.int64) == 0)
+        buf_new = torch.where(seen, torch.where(low, -1, torch.where(high, 1, 0))
+                              .to(torch.int8), buf)
+        keep = live & (buf_new == 0)
+        n_new = keep.sum(dim=0)
+        # pack the survivors at the head of their column, in order
+        to = torch.where(keep, torch.cumsum(keep, dim=0) - 1, f)
+        packed = torch.zeros((f + 1, k), dtype=torch.float64, device=dev)
+        packed.scatter_(0, to, y)
+        y = torch.where(active[None, :], packed[:f], y)
+        buf = torch.where(active[None, :], buf_new, buf)
+        rejl = rejl + torch.where(active, (low & seen).sum(dim=0), 0).to(torch.int32)
+        rejh = rejh + torch.where(active, (high & seen).sum(dim=0), 0).to(torch.int32)
+        r = torch.where(active, r + (flag & seen).sum(dim=0), r)
+        ended = active & ~((n_new < n) & (n_new > 3))
+        n = torch.where(active, n_new, n)
+        active = active & ~ended
+        it += 1
+    total = torch.where(rows < n[None, :], y, 0.0).sum(dim=0)
+    mean = round_to_word_f(total / torch.clamp(n, min=1).to(torch.float64))
+    mean = torch.where(n > 0, mean, 0.0)
+    return i32_to_u16(mean.to(torch.int32)), rejl, rejh
+
+
 def linearfit_exact(columns: np.ndarray, sig):
-    """The literal f64 oracle (``verify.oracle.c_reject_block``,
-    stacking.c:1750-1783) on every column of a (F, K) WORD-valued host
-    array: the exact path of the linearfit hybrid. Returns NumPy ``(mean
-    uint16 (K,), rejlow int32 (K,), rejhigh int32 (K,))``."""
-    from siriltpu_torch.verify.oracle import c_reject_block
-
-    k = columns.shape[1]
-    mean = np.zeros(k, np.uint16)
-    rej = np.zeros((2, k), np.int32)
-    for j in range(k):
-        surv, rej[:, j] = c_reject_block(
-            columns[:, j].astype(np.uint16), "linearfit", sig)
-        if surv.size:
-            mean[j] = np_round_to_word(
-                surv.astype(np.float64).sum() / surv.size)
-    return mean, rej[0], rej[1]
+    """:func:`linearfit_settle` on every column of a (F, K) WORD-valued
+    host array, on the CPU: the words and counters of the literal oracle
+    (``verify.oracle.c_reject_block``). Returns NumPy ``(mean uint16 (K,),
+    rejlow int32 (K,), rejhigh int32 (K,))``."""
+    cols = torch.from_numpy(np.asarray(columns).astype(np.int32))
+    mean, rejl, rejh = linearfit_settle(cols, sig)
+    return u16_to_numpy(mean), rejl.numpy(), rejh.numpy()
 
 
-def linearfit_hybrid_block(flat, sig=(3.0, 3.0), *, device):
-    """LINEARFIT hybrid (the linearfit analog of sigma's hybrid): the f32
-    fit on ``device`` decides every pixel, and the rare pixels whose
-    residual/sigma ratio came within LINEARFIT_KNIFE_EPS of the clip
-    threshold, where f32 can flip the C's f64 decision, are re-run on the
-    host through the literal f64 oracle (linearfit_exact).
-
-    ``flat``: (F, P) WORD-valued array or tensor. Returns NumPy ``(mean
-    uint16 (P,), rejlow (P,), rejhigh (P,))``, bit-exact against the
-    compiled C including the counters."""
-    if not isinstance(flat, Tensor):
-        flat = torch.from_numpy(np.asarray(flat).astype(np.float32))
-    flat = to_float32(flat.to(device))
-    valid, v, rejl, rejh, knife = reject_linearfit(
-        flat, float(sig[0]), float(sig[1]))
-    mean = u16_to_numpy(_mean_of_survivors(v, valid))
-    rejl, rejh = rejl.cpu().numpy(), rejh.cpu().numpy()
-    kidx = torch.nonzero(knife)[:, 0]
-    if kidx.numel():
-        cols = flat[:, kidx].cpu().numpy()
-        kidx = kidx.cpu().numpy()
-        mean[kidx], rejl[kidx], rejh[kidx] = linearfit_exact(cols, sig)
-    return mean, rejl, rejh
-
-
-__all__ = ["reject_and_mean", "reject_linearfit", "linearfit_hybrid_block",
-           "linearfit_exact", "LINEARFIT_KNIFE_EPS", "reject_sigma", "reject_sigma_window",
+__all__ = ["reject_and_mean", "reject_linearfit", "linearfit_exact",
+           "linearfit_settle", "LINEARFIT_KNIFE_EPS",
+           "reject_sigma", "reject_sigma_window",
            "reject_sigmedian", "reject_winsorized", "reject_winsorized_window",
            "reject_percentile", "reject_none", "masked_median", "MAX_ITERS"]

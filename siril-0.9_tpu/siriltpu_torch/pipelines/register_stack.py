@@ -12,14 +12,17 @@ device-resident (F, H, W) uint16 frame batch:
    card one launch of the ``align_shift`` CUDA kernel;
 4. ``stack_rejected``: ``reject_stack``, the rejection's CUDA kernel
    (sort + clip + mean per pixel, its degenerate pixels re-run exactly)
-   or, for a rejection without one, plain PyTorch.
+   or, for a rejection without one, plain PyTorch (linearfit: the f32
+   fit, then its knife-edge pixels settled in float64).
 
 With tracing on (``utils.timing``) a call is a ``register_and_stack``
 span over the stages' spans ``register.shifts``, ``register.quality``,
 ``align.copy``, ``stack.reject`` and ``result.to_host``, whatever
 functions implement them (and ``align.shift_read`` before ``align.copy``
-on the CPU). On the card nothing between ``register.shifts`` and
-``result.to_host`` waits for the card.
+on the CPU, ``stack.linearfit_fixup`` inside a linearfit
+``stack.reject``). On the card nothing between ``register.shifts`` and
+``result.to_host`` waits for the card, but linearfit's passes and its
+gather of knife-edge pixels.
 """
 
 from __future__ import annotations
@@ -116,9 +119,11 @@ def register_and_stack(frames_dev: torch.Tensor, *, sel: Tuple[int, int, int],
     ``siriltpu``'s function and have no effect: the kernel stacks all rows
     in one launch, and eager PyTorch never donates the caller's frames.
     ``reject_stack`` stacks every rejection: sigma, median, percentile,
-    sigmedian and winsorized with their kernels; none, sigma_masked and
-    linearfit in plain PyTorch (linearfit as the f32 fit, without the
-    exact re-run of ``stacking.api``, as in ``siriltpu``).
+    sigmedian and winsorized with their kernels; none and sigma_masked in
+    plain PyTorch; linearfit as the f32 fit with its knife-edge pixels
+    settled in float64 on the frames' device, so that every word is
+    Siril's. Here the port departs from ``siriltpu``, whose
+    ``register_and_stack`` keeps the f32 fit's word on those pixels.
     """
     f, h, w = frames_dev.shape
     dev = frames_dev.device

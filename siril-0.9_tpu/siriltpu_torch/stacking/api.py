@@ -20,8 +20,9 @@ entry points): the mean and median stacks through ``ops.cuda.reject_stack``
 (the CUDA rejection kernels, or plain PyTorch for a rejection without
 one), linearfit through its hybrid. The result crosses to the host once,
 at the end; linearfit also brings the raw values of its knife-edge pixels
-to the host, block by block, for their exact re-run
-(``_BlockLoop._linearfit``). ``stack_frames`` gathers its
+to the host, block by block, for their float64 normalization, and settles
+them on the device (``_BlockLoop._linearfit``, through
+``linearfit_hybrid``). ``stack_frames`` gathers its
 y-shifted blocks from frames on the device; the streaming
 ``stack_sequence`` reads them from the files with a host thread, into
 pinned memory, one block ahead of the card.
@@ -49,9 +50,7 @@ from siriltpu_torch.core.memory import (get_available_memory_mb,
                                         get_device_memory_bytes,
                                         stacking_block_rows)
 from siriltpu_torch.ops import stack as basic_stack
-from siriltpu_torch.ops.cuda.reject_stack import reject_stack
-from siriltpu_torch.ops.rejection import (_mean_of_survivors, linearfit_exact,
-                                          reject_linearfit)
+from siriltpu_torch.ops.cuda.reject_stack import linearfit_hybrid, reject_stack
 from siriltpu_torch.ops.stats import (STATS_EXTRA, ikss_from_histogram,
                                       statistics)
 from siriltpu_torch.utils.interop import (frames_from_numpy, i32_to_u16,
@@ -386,24 +385,18 @@ class _BlockLoop:
             self.out[ch, r0:r1] = o.view(torch.int16).reshape(r1 - r0, w)
 
     def _linearfit(self, block: torch.Tensor, flat: torch.Tensor):
-        """The linearfit HYBRID on one block: the f32 fit decides every
-        pixel of ``flat``, the normalized and x-shifted (F, Bh * W) f32
-        values, and the pixels it flags as knife-edges are re-run on the
-        host through the literal f64 path (normalization
-        stacking.c:1635-1651 in f64, then ``linearfit_exact``) on their raw
-        values, gathered from the uint16 ``block`` at ``x - shiftx[i]``
-        with zero outside. One host sync a block, and only the flagged
-        pixels' (F, K) values cross. Returns (mean uint16, rejlow,
-        rejhigh), each (Bh * W,)."""
+        """The linearfit HYBRID on one block (``linearfit_hybrid``): the
+        f32 fit decides every pixel of ``flat``, the normalized and
+        x-shifted (F, Bh * W) f32 values, and the pixels it flags as
+        knife-edges are settled in float64 on the device, from their raw
+        values gathered from the uint16 ``block`` at ``x - shiftx[i]``
+        with zero outside and normalized on the host in float64
+        (stacking.c:1635-1651). One host sync a block, and only the
+        flagged pixels' (F, K) values cross, both ways. Returns (mean
+        uint16, rejlow, rejhigh), each (Bh * W,)."""
         f, _, w = block.shape
-        valid, v, rl, rh, knife = reject_linearfit(flat, self.siglow,
-                                                   self.sighigh)
-        o = _mean_of_survivors(v, valid)
-        with span("stack.linearfit_fixup"):
-            kidx = torch.nonzero(knife)[:, 0]
-            count("linearfit.knife", int(kidx.numel()))
-            if kidx.numel() == 0:
-                return o, rl, rh
+
+        def columns(kidx):
             cols = (kidx % w)[None, :] - self.sx[:, None]
             inside = ((cols >= 0) & (cols < w)).cpu().numpy()
             raw = block.view(torch.int16)[
@@ -411,16 +404,13 @@ class _BlockLoop:
                 (kidx // w)[None, :], cols.clamp(0, w - 1)]
             raw = raw.cpu().numpy().view(np.uint16)
             off, mul, scale = self.host_coeffs
-            vec = np.zeros(raw.shape, np.uint16)
+            vec = np.zeros(raw.shape, np.int32)
             for i in range(f):
                 vec[i] = np.where(inside[i], normalize_pixel_vector(
                     raw[i], self.normalize, scale[i], off[i], mul[i]), 0)
-            mean, kl, kh = linearfit_exact(vec, (self.siglow, self.sighigh))
-            o.view(torch.int16)[kidx] = torch.from_numpy(
-                mean.view(np.int16)).to(o.device)
-            rl[kidx] = torch.from_numpy(kl).to(rl.device)
-            rh[kidx] = torch.from_numpy(kh).to(rh.device)
-        return o, rl, rh
+            return torch.from_numpy(vec).to(flat.device)
+
+        return linearfit_hybrid(flat, self.siglow, self.sighigh, columns)
 
     def result(self) -> StackResult:
         nbytes = 2 * self.out.numel() + 16 * self.rejl.numel()

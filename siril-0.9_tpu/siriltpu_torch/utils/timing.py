@@ -22,14 +22,18 @@ under them: ``register_and_stack``, ``register.shifts``,
 ``register.quality``, ``align.shift_read``, ``align.copy``,
 ``stack.reject``, ``result.to_host``; ``stack_sequence``, ``stack_frames``,
 ``stack.normalize``, ``stack.read``, ``stack.read_block``, ``stack.wait``,
-``stack.block``, ``stack.linearfit_fixup``; ``global.read``,
+``stack.block``, ``stack.linearfit_fixup`` (with K, the pixels settled;
+inside a linearfit ``stack.reject``, whose ``form`` is ``hybrid``, and in
+the block loop); ``global.read``,
 ``global.wait``, ``global.starfind``, ``global.match``, ``global.warp``,
 ``global.copy``, ``global.write``; ``ecc.read``, ``ecc.device``,
 ``ecc.quality``. Counters: ``reject.launches.<kernel>``,
 ``reject.form.<rejection>.<form>`` (launches of a kernel in each form:
-``wires``, ``shared`` or ``scratch``), ``stack.blocks`` (row blocks a
-streaming stack read from the files), ``linearfit.knife``; and, while
-tracing is on only,
+``wires``, ``team``, ``shared`` or ``scratch``), ``stack.blocks`` (row
+blocks a streaming stack read from the files), ``linearfit.knife``
+(knife-edge pixels settled in float64, in ``reject_stack`` and the block
+loop alike), ``linearfit.passes`` (passes of the float32 fit, each one
+host check of ``done.all()``); and, while tracing is on only,
 ``reject.degenerate.<rejection>`` (pixels a window kernel flagged
 degenerate and the exact masked loop settled), a sum the device keeps
 until ``counters()`` reads it.

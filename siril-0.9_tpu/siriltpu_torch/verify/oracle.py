@@ -1,9 +1,8 @@
 """NumPy float64 oracle: literal re-derivations of the reference C code's
 semantics: the sum, max, min, mean-with-rejection and median stacks and
-their normalization, the per-pixel rejection (the exact path that the
-linearfit hybrid re-runs its knife-edge pixels through,
-``ops.rejection.linearfit_hybrid_block``, ``stacking.api``), the shift
-gather of ``ops.imops.shift_image``, quantize.c's noise estimate, and
+their normalization, the per-pixel rejection (which the tests hold
+``ops.rejection.linearfit_settle``, the linearfit hybrid's exact path,
+to), the shift gather of ``ops.imops.shift_image``, quantize.c's noise estimate, and
 libraw's postprocess stages that ``io.rawproc`` is held to.
 
 The port's own copy of ``siriltpu.verify.oracle``, with its arithmetic

@@ -3,9 +3,10 @@ reference C (tests/goldens/c_rejection.bin).
 
 Both packages get the same seeded NumPy inputs. Tolerances:
 
-- the hybrid (f32 fit, then the f64 oracle on the knife-edge pixels) is
-  held at tolerance 0 on the mean and both counters, on seeded blocks and
-  on every linearfit record of the compiled C;
+- the hybrid (``reject_stack``'s linearfit route: the f32 fit, then the
+  float64 settle of the knife-edge pixels) is held at tolerance 0 on the
+  mean and both counters, on seeded blocks and on every linearfit record
+  of the compiled C;
 - the plain f32 fit is held at tolerance 0 (survivor mask, sorted values,
   counters, mean) on every pixel that neither package flags ``knife``;
 - the knife masks themselves only loosely: the fit's sums over F are f32
@@ -25,6 +26,8 @@ import jax.numpy as jnp  # noqa: E402
 from siriltpu.ops import rejection as jrej  # noqa: E402
 from siriltpu.verify import oracle as joracle  # noqa: E402
 from siriltpu_torch.ops import rejection as trej  # noqa: E402
+from siriltpu_torch.ops.cuda.reject_stack import (linearfit_hybrid,  # noqa: E402
+                                                  reject_stack)
 from siriltpu_torch.verify import oracle as toracle  # noqa: E402
 
 from test_c_goldens import REJ_NAMES, _read_rejection  # noqa: E402
@@ -43,6 +46,15 @@ def make_block(f: int, seed: int) -> np.ndarray:
     noise = rng.normal(1000, 30, size=vals[:, 1::3].shape)
     vals[:, 1::3] = noise.clip(0, 65535).astype(np.uint16)
     return vals
+
+
+def hybrid(vals: np.ndarray, sig):
+    """``reject_stack``'s linearfit route on a (F, P) uint16 array on the
+    CPU, as NumPy (mean uint16, rejlow int32, rejhigh int32)."""
+    t = torch.from_numpy(np.ascontiguousarray(vals, np.uint16).view(np.int16))
+    mean, rl, rh = reject_stack(t.view(torch.uint16), "linearfit", *sig,
+                                with_counters=True)
+    return mean.view(torch.int16).numpy().view(np.uint16), rl.numpy(), rh.numpy()
 
 
 def f32(vals: np.ndarray):
@@ -74,20 +86,30 @@ def test_reject_linearfit_matches_jax(F, sig):
 def test_linearfit_hybrid_matches_jax(F, sig):
     vals = make_block(F, seed=4)
     want = jrej.linearfit_hybrid_block(vals, sig)
-    got = trej.linearfit_hybrid_block(vals, sig, device="cpu")
+    got = hybrid(vals, sig)
     for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
         assert g.dtype == w.dtype, name
         np.testing.assert_array_equal(g, w, err_msg=name)
 
 
 def test_linearfit_hybrid_takes_a_uint16_tensor():
+    """The route on a uint16 tensor equals ``linearfit_hybrid`` fed as the
+    block loop feeds it: the fit on float32 values and the settle's int32
+    columns from a ``columns`` source."""
     vals = make_block(12, seed=5)
-    a = trej.linearfit_hybrid_block(vals, (2.0, 1.5), device="cpu")
-    b = trej.linearfit_hybrid_block(
-        torch.from_numpy(vals.view(np.int16)).view(torch.uint16), (2.0, 1.5),
-        device="cpu")
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(x, y)
+    a = hybrid(vals, (2.0, 1.5))
+    asked = []
+
+    def columns(kidx):
+        asked.append(int(kidx.numel()))
+        return torch.from_numpy(vals.astype(np.int32))[:, kidx]
+
+    b = linearfit_hybrid(torch.from_numpy(vals.astype(np.float32)), 2.0, 1.5,
+                         columns)
+    assert asked and asked[0] > 0, "the block must hold knife-edge pixels"
+    np.testing.assert_array_equal(a[0], b[0].view(torch.int16).numpy().view(np.uint16))
+    for x, y in zip(a[1:], b[1:]):
+        np.testing.assert_array_equal(x, y.numpy())
 
 
 @pytest.mark.parametrize("F", [5, 12, 25, 100])
@@ -121,7 +143,7 @@ def test_linearfit_goldens_exact(n):
     assert sum(len(v) for v in groups.values()) == 72
     for sig, items in groups.items():
         vals = np.stack([it[0] for it in items], axis=1)
-        mean, rl, rh = trej.linearfit_hybrid_block(vals, sig, device="cpu")
+        mean, rl, rh = hybrid(vals.astype(np.uint16), sig)
         for name, g, col in (("mean", mean, 1), ("rejl", rl, 2), ("rejh", rh, 3)):
             np.testing.assert_array_equal(g, [it[col] for it in items],
                                           err_msg=f"{name} sig={sig}")

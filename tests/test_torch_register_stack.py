@@ -1,6 +1,8 @@
 """siriltpu_torch.pipelines.register_stack against
 siriltpu.pipelines.register_stack: the align forms, and the whole
-register + sigma-clip stack slice, bit for bit."""
+register + sigma-clip stack slice, bit for bit. Linearfit departs from
+siriltpu: the port settles its knife-edge pixels in float64 and gives the
+oracle's word there, where siriltpu keeps the float32 fit's."""
 
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ from siriltpu_torch.pipelines import register_stack as trs  # noqa: E402
 from siriltpu_torch.utils.interop import (frames_from_numpy,  # noqa: E402
                                           u16_to_numpy)
 from siriltpu_torch.utils.timing import counters  # noqa: E402
+from siriltpu_torch.verify import oracle  # noqa: E402
 
 
 @pytest.mark.parametrize("form", ["gather", "slice", "auto"])
@@ -80,9 +83,11 @@ def test_register_and_stack_fused_rejections_match_jax(rejection, sig):
     """Every rejection with a kernel, and linearfit, through the whole
     slice, against JAX register_and_stack. JAX runs median only on the TPU
     (its CPU route has no median rejection), so the median stack is held
-    to JAX's align and masked_median instead. linearfit is the plain f32
-    fit in both packages (no exact re-run): tolerance 0 on every pixel
-    that neither flags as a knife-edge."""
+    to JAX's align and masked_median instead. linearfit departs from
+    siriltpu on the knife-edge pixels: JAX keeps its f32 fit's word there,
+    the port settles them in float64 to the oracle's word. So linearfit is
+    held to JAX at tolerance 0 on every pixel that neither flags as a
+    knife-edge, and to the oracle (``c_reject_block``) on the others."""
     from siriltpu.ops.rejection import masked_median, reject_linearfit
     from siriltpu_torch.ops.rejection import reject_linearfit as t_linearfit
 
@@ -114,8 +119,43 @@ def test_register_and_stack_fused_rejections_match_jax(rejection, sig):
         knife = (np.asarray(reject_linearfit(jnp.asarray(aligned), *sig)[4])
                  | t_linearfit(torch.from_numpy(aligned), *sig)[4].numpy())
         assert knife.mean() < 0.1
+        np.testing.assert_array_equal(
+            img.reshape(-1)[knife], oracle_means(aligned[:, knife], rejection, sig))
         img, want_img = img.reshape(-1)[~knife], want_img.reshape(-1)[~knife]
     np.testing.assert_array_equal(img, want_img)
+
+
+def oracle_means(flat: np.ndarray, rejection: str, sig) -> np.ndarray:
+    """round_to_WORD of the mean of the oracle's survivors, on every
+    column of (F, P) values. uint16."""
+    out = np.zeros(flat.shape[1], np.uint16)
+    for j in range(flat.shape[1]):
+        surv, _ = oracle.c_reject_block(flat[:, j].astype(np.uint16), rejection, sig)
+        if surv.size:
+            out[j] = oracle.np_round_to_word(surv.astype(np.float64).sum() / surv.size)
+    return out
+
+
+@pytest.mark.parametrize("sig", [(3.0, 3.0), (2.0, 1.5)])
+def test_register_and_stack_linearfit_matches_oracle(sig):
+    """register_and_stack(rejection="linearfit") gives the oracle's word
+    on every pixel of the stack, knife-edge pixels included: at (2, 1.5)
+    the float32 fit alone is wrong on some of them."""
+    from siriltpu_torch.ops.rejection import reject_and_mean
+
+    bench = trs.RegisterStackBench(size=96, nframes=12, seed=7, device="cpu")
+    img, shifts, _ = trs.register_and_stack(
+        bench.frames(), sel=bench.sel, rejection="linearfit", sig=sig,
+        with_quality=False)
+    np.testing.assert_array_equal(shifts, -bench.shifts)
+    frames = u16_to_numpy(bench.frames())
+    flat = np.stack([oracle.shift_gather(fr, x, y, skip_origin=False)
+                     for fr, (x, y) in zip(frames, shifts)]).reshape(12, -1)
+    want = oracle_means(flat, "linearfit", sig)
+    np.testing.assert_array_equal(img.reshape(-1), want)
+    if sig == (2.0, 1.5):
+        f32 = reject_and_mean(frames_from_numpy(flat, "cpu"), "linearfit", sig)[0]
+        assert (u16_to_numpy(f32) != want).sum() > 0
 
 
 def test_register_and_stack_rejects_unported_and_bad_selection():

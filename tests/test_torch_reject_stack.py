@@ -310,8 +310,10 @@ def test_reject_plain_matches_jax_reject_and_mean(rejection, F, P, every, sig):
 def test_cpu_route_span_reports_form_plain(rejection):
     """On the CPU route the ``stack.reject`` span names the form
     ``plain``, and no kernel form is counted (``reject.form.*`` counts
-    launches on the card only). A rejection without a kernel takes the
-    same span and gives ``reject_and_mean``'s words and counters."""
+    launches on the card only). None and sigma_masked take the same span
+    and give ``reject_and_mean``'s words and counters; linearfit's span
+    names its form ``hybrid`` (the f32 fit, then the float64 settle of its
+    knife-edge pixels) and gives the oracle's words and counters."""
     vals = frames_from_numpy(make_vals(25, 64), "cpu")
     lo, hi = SIGS.get(rejection, (2.5, 2.5))
 
@@ -326,13 +328,109 @@ def test_cpu_route_span_reports_form_plain(rejection):
     finally:
         timing.disable()
     spans = [s for s in timing.collect() if s.name == "stack.reject"]
+    form = "hybrid" if rejection == "linearfit" else "plain"
     assert [s.attrs for s in spans] == [
-        {"shape": (25, 64), "rejection": rejection, "form": "plain"}]
+        {"shape": (25, 64), "rejection": rejection, "form": form}]
     assert forms() == before
-    if rejection not in KERNELS:
+    if rejection == "linearfit":
+        want = _oracle_words(_ints(vals), rejection, (lo, hi))
+        for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
+            np.testing.assert_array_equal(_ints(g), w, err_msg=name)
+    elif rejection not in KERNELS:
         want = trej.reject_and_mean(vals, rejection, (lo, hi))
         for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
             np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=name)
+
+
+def _oracle_words(vals: np.ndarray, rejection: str, sig):
+    """The literal per-pixel oracle on every column of (F, P) values:
+    (mean, rejl, rejh) int NumPy arrays."""
+    out = np.zeros((3, vals.shape[1]), np.int64)
+    for j in range(vals.shape[1]):
+        surv, rej = oracle.c_reject_block(vals[:, j].astype(np.uint16),
+                                          rejection, sig)
+        mean = surv.astype(np.float64).sum() / surv.size if surv.size else 0.0
+        out[:, j] = int(oracle.np_round_to_word(mean)), rej[0], rej[1]
+    return out
+
+
+def knife_vals(f: int, p: int, seed: int) -> np.ndarray:
+    """(F, P) uint16 columns of continuous noise, a few with outliers,
+    and some that clip down to the break: a fit on them comes within
+    LINEARFIT_KNIFE_EPS of a clip on some pixels."""
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(1000, 30, size=(f, p))
+    cols = np.arange(0, p, 3)
+    vals[rng.integers(0, f, cols.size), cols] = 60000
+    vals[:, 1::7] = np.geomspace(1, 65535, f)[:, None]
+    return vals.clip(0, 65535).astype(np.uint16)
+
+
+#: (F, P, sig, seed): linearfit blocks whose f32 fit flags knife-edge
+#: pixels, where the float32 word differs from the oracle's on some
+LINEARFIT_ROUTE_CASES = [(8, 3000, (2.0, 1.5), 1), (25, 3000, (3.0, 3.0), 2),
+                         (50, 2000, (3.0, 3.0), 3)]
+
+
+@pytest.mark.parametrize("F,P,sig,seed", LINEARFIT_ROUTE_CASES)
+def test_reject_stack_linearfit_matches_oracle_on_every_pixel(F, P, sig, seed):
+    """``reject_stack(..., "linearfit", with_counters=True)`` gives the
+    oracle's mean and both counters on every pixel, knife-edge ones
+    included: its settle is counted (``linearfit.knife``) under a
+    ``stack.linearfit_fixup`` span that carries K, and the float32 fit's
+    passes are counted (``linearfit.passes``)."""
+    vals = knife_vals(F, P, seed)
+    t = frames_from_numpy(vals, "cpu")
+    knife = int(trej.reject_linearfit(t, *sig)[4].sum())
+    assert knife > 0, "the case must hold knife-edge pixels"
+    before = counters()
+    timing.collect()
+    timing.enable()
+    try:
+        got = rs.reject_stack(t, "linearfit", *sig, with_counters=True)
+    finally:
+        timing.disable()
+    after = counters()
+    assert after["linearfit.knife"] - before.get("linearfit.knife", 0) == knife
+    assert after["linearfit.passes"] > before.get("linearfit.passes", 0)
+    fix = [s for s in timing.collect() if s.name == "stack.linearfit_fixup"]
+    assert [s.attrs for s in fix] == [{"K": knife}]
+    want = _oracle_words(vals, "linearfit", sig)
+    for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
+        np.testing.assert_array_equal(_ints(g), w, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,P,sig,seed", LINEARFIT_ROUTE_CASES)
+def test_cuda_reject_stack_linearfit_matches_cpu(cuda_device, F, P, sig, seed):
+    """On the card linearfit runs the same hybrid on the device, and its
+    words and counters are the CPU route's, which the oracle holds."""
+    vals = knife_vals(F, P, seed)
+    want = rs.reject_stack(frames_from_numpy(vals, "cpu"), "linearfit", *sig,
+                           with_counters=True)
+    got = rs.reject_stack(frames_from_numpy(vals, cuda_device), "linearfit",
+                          *sig, with_counters=True)
+    for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
+        assert g.device.type == "cuda"
+        np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_register_and_stack_linearfit_matches_cpu(cuda_device):
+    """register_and_stack(rejection="linearfit") on the card: the CPU's
+    stack (the oracle's words, test_torch_register_stack.py) and shifts,
+    its knife-edge pixels settled on the device."""
+    from siriltpu_torch.pipelines.register_stack import (RegisterStackBench,
+                                                         register_and_stack)
+
+    bench = RegisterStackBench(size=96, nframes=12, seed=7, device="cpu")
+    kw = dict(sel=bench.sel, rejection="linearfit", sig=(2.0, 1.5))
+    before = counters().get("linearfit.knife", 0)
+    got = register_and_stack(bench.frames().to(cuda_device), **kw)
+    assert counters()["linearfit.knife"] > before
+    want = register_and_stack(bench.frames(), **kw)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_wrapper_rejects_bad_input():
