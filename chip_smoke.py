@@ -83,22 +83,29 @@ exits non-zero without printing a result:
    stack, and, streamed, the seconds the main thread waited for the
    reader: one run each on the host clock, the file fresh in the page
    cache;
-9. the paths that run no hand-written kernel (plain PyTorch on the card;
-   every check holds the card's result to other code or to the host):
-   a. linearfit: stack_frames(mean, linearfit (3, 3), no normalization) on
-      config 2's frames. The image and the rejection totals must equal the
-      same (F, P) data, built with other code, put through reject_linearfit
-      in 2^20-pixel chunks with every knife-edge pixel settled by the
-      per-pixel oracle (verify/oracle.py:c_reject_block); the batched
-      float64 settle, on the card and on the host (linearfit_exact), must
-      give the oracle's mean and both counters on every knife-edge pixel;
-      reject_stack(linearfit), the main path's route, on the whole flat
-      must give the same words and counters on every pixel; the fit must
-      equal the oracle on 2,000 seeded others. Prints the knife-edge
-      pixels, the seconds of the stack's fix-up, of the route, of the
-      batched settle on the card and on the host and of the oracle a
-      pixel, frames/s, and reject_linearfit's ms at 50 x 4.19M beside its
-      device-memory bound and torch.sort's ms;
+9. linearfit, and the paths that run no hand-written kernel (plain
+   PyTorch on the card; every check holds the card's result to other code
+   or to the host):
+   a. linearfit on the deep-sky linear-fit cell's frames (50 x 2048 x
+      2048, portbench's generator, sig (3, 3)): stack_frames(mean,
+      linearfit, no normalization), the block loop's hybrid, must give the
+      image and rejection totals of the same (F, P) data, built with other
+      code, put through reject_linearfit in 2^20-pixel chunks with every
+      knife-edge pixel settled by the per-pixel oracle
+      (verify/oracle.py:c_reject_block), and linearfit_exact its words on
+      them; reject_stack(linearfit), the main path's route, must be one
+      launch of the linear-fit kernel in its wires form under
+      torch.cuda.set_sync_debug_mode("error"), and give c_reject_block's
+      words and counters on every knife-edge pixel, on 2,000 seeded
+      others and wherever it differs from the chunked fit with the oracle,
+      and linearfit_settle's (the plain twin, on the card) and
+      linearfit_hybrid's on every pixel. Prints the knife-edge pixels, the
+      stack's seconds and frames/s, the kernel's ms (CUDA events, median of
+      REPS) with its registers, warps an SM, passes and lane use, beside
+      its byte bound and its own float64 instructions reckoned at the
+      card's issue rate, and the twin's and the old hybrid's ms; the
+      kernels line carries its launch, its largest error and its ms
+      against the byte bound;
    b. ECC: 500 frames of 480 x 640 in the 8-bit range (a disc with
       detail, peak under 255, 2 counts of noise, whole-pixel drifts in
       [-20, 20]) written as a SER file, registered with register_ecc (the
@@ -352,6 +359,26 @@ CONFIG13 = (12, 4000, 6000)
 NSTARS13 = 500
 NATIVE13 = (512, 768)
 LF_SAMPLE = 2000
+#: phase 9a's frames, made by portbench's generator (portbench/core/frames.py)
+#: at this seed: 50 mono subs of 2048 x 2048 with whole-pixel drifts, point
+#: sources and hot and cold pixels (the deep-sky linear-fit cell's), and the
+#: sigs of the clip
+LF_FRAMES = {"frames": 50, "height": 2048, "width": 2048, "drift": 20,
+             "points": 750, "outlier_every": 100000}
+LF_SEED = 3220000101
+LF_SIG = (3.0, 3.0)
+#: the linear-fit kernel's own float64 instruction count, reckoned at the
+#: card's issue rate: its float64 instructions a value of a pass (four
+#: loops: the running means with their divisions by the rank, the residual
+#: sum, the clip), counted as though every pass walked all F values (it walks
+#: only the survivors), and the H100 SXM's boost clock, at which 64 float64
+#: lanes an SM give its published 34 TFLOP/s of FP64 (an FMA as two). A
+#: reckoning of this implementation, not a bound on the function
+LF_FP64_OPS = 36
+LF_CLOCK_HZ = 1.98e9
+#: the linear-fit kernel's entry at F = 50 (the wires form, 64 wires), as
+#: its mangled name holds it
+LF_ENTRY_F50 = "linearfit_wiresILi32E"
 CHUNK = 1 << 20
 #: pixels a call of the masked reference loops takes (masked_reference, at
 #: the many frames of phases 3, 6 and 7): each loop runs until its slowest
@@ -531,6 +558,10 @@ class Record:
         #: per kernel, the form, registers and resident warps of its launch
         #: at the shape it is timed at, where reported
         self.plan = {}
+        #: the linear-fit kernel (phase 9a): its ms, bounds, the plain
+        #: twin's and the old hybrid's ms, lane use, shape, form, warps and
+        #: registers
+        self.linearfit = {}
 
     def check(self, name: str, errs, what: str):
         self.err[name] = max(self.err[name], *errs)
@@ -1217,21 +1248,26 @@ def oracle_words(cols: np.ndarray, sig):
     return out
 
 
-def phase9a(dev, card):
-    """linearfit on config 2: stack_frames against reject_linearfit in
-    chunks plus the NumPy oracle, and the timing that decides whether
-    linearfit gets a kernel."""
+def phase9a(rs, rec, dev, card):
+    """linearfit on the deep-sky linear-fit cell's frames: the block loop's
+    hybrid (stack_frames) against the float32 fit in chunks with its
+    knife-edge pixels put through the oracle; the main path's kernel
+    (reject_stack) against the same on every pixel, against c_reject_block
+    on every knife-edge pixel and LF_SAMPLE others, and against
+    linearfit_settle and the old hybrid on every pixel; then the kernel's
+    time beside its bounds, the twin's and the hybrid's."""
     import torch
-    from siriltpu_torch.ops import rejection
+    from portbench.core import frames as gen
     from siriltpu_torch.ops.rejection import (_mean_of_survivors,
                                               linearfit_exact, linearfit_settle,
                                               reject_linearfit)
-    from siriltpu_torch.ops.cuda.reject_stack import reject_stack
     from siriltpu_torch.stacking import api
+    from siriltpu_torch.utils import timing
     from siriltpu_torch.utils.interop import frames_from_numpy, u16_to_i32
 
-    sig = (3.0, 3.0)
-    frames, shifts = make_frames(*CONFIG2, seed=2, dev=dev)
+    sig = LF_SIG
+    frames, shifts = gen.make_frames(LF_FRAMES, LF_SEED, dev)
+    frames = frames[:, None]
     f, c, h, w = frames.shape
     reset_counts()
     with stage_seconds() as stages:
@@ -1261,9 +1297,7 @@ def phase9a(dev, card):
     t0 = time.perf_counter()
     km, kl, kh = oracle_words(kcols, sig)
     per_pixel_s = (time.perf_counter() - t0) / max(1, kidx.numel())
-    # the batched float64 settle, on the host (linearfit_exact, its NumPy
-    # face) and on the card as reject_stack runs it, each against the
-    # oracle on every knife-edge pixel
+    # linearfit_exact, the settle's NumPy face, on the host
     t0 = time.perf_counter()
     hm, hl, hh = linearfit_exact(kcols, sig)
     exact_s = time.perf_counter() - t0
@@ -1272,19 +1306,6 @@ def phase9a(dev, card):
     if any(herrs):
         fail(f"phase9a: linearfit_exact vs c_reject_block on {kidx.numel()} "
              f"knife-edge pixels: max|diff| mean/rejl/rejh {herrs}")
-    cols = flat.view(torch.int16)[:, kidx].view(torch.uint16)
-    linearfit_settle(cols[:, :8], sig)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dm, dl, dh = linearfit_settle(cols, sig)
-    torch.cuda.synchronize()
-    settle_s = time.perf_counter() - t0
-    derrs = [int(np.abs(t.cpu().numpy().astype(np.int64) - o).max(initial=0))
-             for t, o in ((dm.view(torch.int16).to(torch.int32) & 0xFFFF, km),
-                          (dl, kl), (dh, kh))]
-    if any(derrs):
-        fail(f"phase9a: linearfit_settle on the card vs c_reject_block on "
-             f"{kidx.numel()} knife-edge pixels: max|diff| mean/rejl/rejh {derrs}")
     flips = int((mean[kidx].cpu().numpy() != km).sum())
     for dst, src in ((mean, km), (rl, kl), (rh, kh)):
         dst[kidx] = torch.from_numpy(src.astype(np.int32)).to(dev)
@@ -1296,77 +1317,127 @@ def phase9a(dev, card):
         fail(f"phase9a: stack_frames(linearfit) vs the chunked fit with the "
              f"oracle on {kidx.numel()} knife-edge pixels (the stack re-ran "
              f"{knife_n}): max|diff| image/rejlow/rejhigh {errs}")
+
     # the main path's route (register_and_stack's): reject_stack on the
-    # whole (F, P) flat, every word and counter against the same
+    # whole (F, P) flat, one launch of the kernel and no host sync
+    rs.linearfit_cuda(flat, *sig)  # the table of x moments for F
+    torch.cuda.synchronize()
     reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sm, sl, sh = rs.reject_stack(flat, "linearfit", *sig, with_counters=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sm, sl, sh = reject_stack(flat, "linearfit", *sig, with_counters=True)
-    torch.cuda.synchronize()
-    route_s = time.perf_counter() - t0
-    route_knife = counted("linearfit.knife")
-    rerrs = [int((u16_to_i32(sm) - mean).abs().max()), int((sl - rl).abs().max()),
-             int((sh - rh).abs().max())]
-    if any(rerrs):
-        fail(f"phase9a: reject_stack(linearfit) on {f}x{h * w} vs the chunked "
-             f"fit with the oracle on {kidx.numel()} knife-edge pixels (the "
-             f"route settled {route_knife}): max|diff| mean/rejl/rejh {rerrs}")
-    del sm, sl, sh
-    # the f32 fit off the knife edge against the oracle, on seeded pixels
+    plan = rs.launch_plan("linearfit", f, h * w)
+    launches = {k: counted(f"reject.{k}.linearfit" if k == "launches" else
+                           f"reject.form.linearfit.{k}") for k in ("launches", plan.form)}
+    if plan.form != "wires" or launches != {"launches": 1, plan.form: 1}:
+        fail(f"phase9a: reject_stack(linearfit) at {f}x{h * w}: form {plan.form}, "
+             f"launches {launches}")
+    ks = [u16_to_i32(sm), sl, sh]
+    # the kernel against c_reject_block: every knife-edge pixel, LF_SAMPLE
+    # others, and every pixel where it differs from the chunked f32 fit
+    # with the oracle (an f32 decision outside the fit's guard band)
+    kerrs = [int(np.abs(k[kidx].cpu().numpy() - o).max(initial=0))
+             for k, o in zip(ks, (km, kl, kh))]
     rng = np.random.default_rng(9)
-    sample = torch.from_numpy(rng.choice(h * w, LF_SAMPLE, replace=False)).to(dev)
-    sample = sample[~knife[sample]]
+    others = torch.from_numpy(rng.choice(h * w, LF_SAMPLE, replace=False)).to(dev)
+    others = others[~knife[others]]
     om, ol, oh = oracle_words(
-        flat.view(torch.int16)[:, sample].cpu().numpy().view(np.uint16), sig)
-    serrs = [int(np.abs(t[sample].cpu().numpy() - o).max())
-             for t, o in ((mean, om), (rl, ol), (rh, oh))]
-    if any(serrs):
-        fail(f"phase9a: reject_linearfit vs the oracle on {sample.numel()} "
-             f"pixels off the knife edge: max|diff| mean/rejl/rejh {serrs}")
-    print(f"phase9a stack_frames(mean, linearfit {sig}, normalize=none) "
-          f"{f}x{c}x{h}x{w}: image and rejection totals (low "
-          f"{int(res.rejection_low[0])} high {int(res.rejection_high[0])}) vs the "
-          f"chunked fit + oracle max|diff|={max(errs)}; mean and both counters "
-          f"vs c_reject_block on {kidx.numel()} knife-edge pixels (the f32 fit "
-          f"alone differs on {flips}) and {sample.numel()} others "
-          f"max|diff|={max(serrs)}; its one run {sec:.3f} s, {f / sec:.3f} "
-          f"frames/s, of which the fix-up of {knife_n} knife-edge pixels "
-          f"{stages.get('stack.linearfit_fixup', 0.0):.3f} s (their host "
-          f"normalization and the settle on the card); reject_stack(linearfit) "
-          f"on the whole flat {route_s:.3f} s, {route_knife} settled, every "
-          f"word and counter equal; the batched settle of {kidx.numel()} "
-          f"knife-edge columns on the card {settle_s:.4f} s and on the host "
-          f"{exact_s:.3f} s, both equal to c_reject_block "
-          f"({per_pixel_s * 1e3:.3f} ms a pixel) [{card}]", flush=True)
+        flat.view(torch.int16)[:, others].cpu().numpy().view(np.uint16), sig)
+    serrs = [int(np.abs(k[others].cpu().numpy() - o).max(initial=0))
+             for k, o in zip(ks, (om, ol, oh))]
+    off = torch.nonzero((ks[0] != mean) | (ks[1] != rl) | (ks[2] != rh))[:, 0]
+    dm, dl, dh = oracle_words(
+        flat.view(torch.int16)[:, off].cpu().numpy().view(np.uint16), sig)
+    derrs = [int(np.abs(k[off].cpu().numpy() - o).max(initial=0))
+             for k, o in zip(ks, (dm, dl, dh))]
+    if any(kerrs + serrs + derrs):
+        fail(f"phase9a: the linear-fit kernel vs c_reject_block at {f}x{h * w}: "
+             f"max|diff| mean/rejl/rejh {kerrs} on {kidx.numel()} knife-edge "
+             f"pixels, {serrs} on {others.numel()} others, {derrs} on the "
+             f"{off.numel()} that differ from the chunked f32 fit with the oracle")
     del mean, rl, rh, knife
     torch.cuda.empty_cache()
 
-    ms, _ = cuda_ms(chunked(lambda v: reject_linearfit(v, *sig), flat))
-    # its passes (each ends on one host check of ``done.all()``), counted
-    # in one more run, and what such a check costs on its own
-    passes = []
-    stale_pass = rejection._stale_pass
-    rejection._stale_pass = lambda *a: passes.append(0) or stale_pass(*a)
+    # the plain twin and the old hybrid on the card, each once, each equal
+    # to the kernel on every pixel
+    def once(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    twin_s, twin = once(lambda: linearfit_settle(flat, sig))
+    twin_errs = [max_abs_diff(a, b) for a, b in zip(twin, (sm, sl, sh))]
+    del twin
+    torch.cuda.empty_cache()
+    reset_counts()
+    hybrid_s, hybrid = once(lambda: rs.linearfit_hybrid(flat, *sig))
+    hybrid_knife, hybrid_passes = counted("linearfit.knife"), counted("linearfit.passes")
+    hybrid_errs = [max_abs_diff(a, b) for a, b in zip(hybrid, (sm, sl, sh))]
+    del hybrid
+    torch.cuda.empty_cache()
+    if any(twin_errs + hybrid_errs):
+        fail(f"phase9a: the linear-fit kernel at {f}x{h * w} vs linearfit_settle "
+             f"{twin_errs}, vs linearfit_hybrid {hybrid_errs} (max|diff| "
+             f"mean/rejl/rejh)")
+
+    # the kernel's time, and in one traced run its pixel passes and the
+    # lane-pass slots its warps issued
+    ms, _ = cuda_ms(lambda: rs.linearfit_cuda(flat, *sig))
+    reset_counts()
+    timing.enable()
     try:
-        chunked(lambda v: reject_linearfit(v, *sig), flat)()
+        rs.linearfit_cuda(flat, *sig)
     finally:
-        rejection._stale_pass = stale_pass
-    done = torch.zeros(CHUNK, dtype=torch.bool, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(100):
-        bool(done.all())
-    check_us = (time.perf_counter() - t0) * 1e4
-    nbytes = 2 * f * h * w + 11 * h * w
-    sort_ms, sorted_as = sort_yardstick(flat)
-    print(f"timing [{card}] reject_linearfit at {f}x{h * w} in 2^20-pixel "
-          f"chunks: {ms:.3f} ms (median of {REPS} warm runs), {len(passes)} "
-          f"passes over its chunks, {ms / len(passes):.3f} ms a pass, each "
-          f"with one host check of done.all() ({check_us:.1f} us on an idle "
-          f"card); bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes: "
-          f"uint16 values in, a uint16 mean, two int32 counters and a flag out, "
-          f"at {HBM_BYTES_PER_S:.3g} B/s); torch.sort(dim=0) of the {sorted_as} "
-          f"values {sort_ms:.3f} ms", flush=True)
+        timing.disable()
+    passes, slots = counted("reject.passes.linearfit"), counted("reject.lane_slots.linearfit")
+    timing.collect()
+    nbytes = 2 * f * h * w + 2 * h * w
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fp64_ms = passes * f * LF_FP64_OPS / (sms * 64 * LF_CLOCK_HZ) * 1e3
+    regs = rec.plan.get("linearfit", {}).get("registers")
+    rec.linearfit = {"launches": launches["launches"],
+                     "max_abs_err": max(kerrs + serrs + derrs + twin_errs + hybrid_errs),
+                     "ms": ms, "bound_ms": bound_ms, "plain_ms": twin_s * 1e3,
+                     "hybrid_ms": hybrid_s * 1e3, "lane_use": passes / max(1, slots),
+                     "shape": [f, h * w], "form": plan.form, "warps": plan.warps,
+                     "registers": regs}
+    print(f"phase9a stack_frames(mean, linearfit {sig}, normalize=none) on "
+          f"{f}x{c}x{h}x{w} of the deep-sky linear-fit cell's frames (seed {LF_SEED}): "
+          f"image and rejection totals (low {int(res.rejection_low[0])} high "
+          f"{int(res.rejection_high[0])}) vs the chunked f32 fit with the oracle "
+          f"on {kidx.numel()} knife-edge pixels (the f32 fit alone differs on "
+          f"{flips}) max|diff|={max(errs)}; its one run {sec:.3f} s, "
+          f"{f / sec:.3f} frames/s, of which the fix-up of {knife_n} knife-edge "
+          f"pixels {stages.get('stack.linearfit_fixup', 0.0):.3f} s; "
+          f"linearfit_exact on the host {exact_s:.3f} s, c_reject_block "
+          f"{per_pixel_s * 1e3:.3f} ms a pixel; reject_stack(linearfit): one "
+          f"launch, form {plan.form}, no host sync, every word and counter equal "
+          f"to c_reject_block on {kidx.numel()} knife-edge pixels, "
+          f"{others.numel()} others and the {off.numel()} where the chunked f32 "
+          f"fit with the oracle differs, and to linearfit_settle and "
+          f"linearfit_hybrid on all {h * w} [{card}]", flush=True)
+    print(f"timing [{card}] linearfit kernel at {f}x{h * w}: {ms:.4f} ms (median "
+          f"of {REPS} warm runs), {plan.warps} warps an SM at {regs} registers, "
+          f"{plan.tile} pixels a block; {passes} pixel passes "
+          f"({passes / (h * w):.3f} a pixel), lane use {passes / max(1, slots):.4f} "
+          f"({slots} lane-pass slots); byte bound {bound_ms:.4f} ms ({nbytes} "
+          f"bytes at {HBM_BYTES_PER_S:.3g} B/s, {100 * bound_ms / ms:.3f}% of it); "
+          f"its own float64 instructions at the card's issue rate {fp64_ms:.4f} ms "
+          f"({LF_FP64_OPS} a value of a pass, as though each pass walked all {f} "
+          f"values, {sms} SMs x 64 lanes at {LF_CLOCK_HZ / 1e9:.2f} GHz; a "
+          f"reckoning of this kernel, not a bound); "
+          f"the plain twin linearfit_settle over all {h * w} columns "
+          f"{twin_s * 1e3:.1f} ms; the old hybrid linearfit_hybrid "
+          f"{hybrid_s * 1e3:.1f} ms ({hybrid_passes} f32 passes, {hybrid_knife} "
+          f"knife-edge pixels settled)", flush=True)
+    del flat, sm, sl, sh
+    torch.cuda.empty_cache()
 
 
 def make_disc_frames(f: int, h: int, w: int, seed: int, dev):
@@ -3242,6 +3313,12 @@ def main(argv=None) -> int:
         fail(f"sigma at F = 100: form {plans['sigma'].form}, "
              f"{plans['sigma'].warps} warps per SM")
     rec = Record(build.KERNELS)
+    lf = [n for e, n in regs.items() if LF_ENTRY_F50 in e]
+    if len(lf) != 1:
+        fail(f"ptxas does not report the linear-fit entry {LF_ENTRY_F50} once: {lf}")
+    rec.plan["linearfit"] = {"registers": lf[0]}
+    print(f"occupancy: linear-fit kernel at F = 50: {lf[0]} registers, "
+          f"{rs.launch_plan('linearfit', 50, 1 << 22).warps} warps an SM", flush=True)
     rec.plan["winsorized"] = {"form": plans["winsorized"].form, "registers": wires[0],
                               "warps": plans["winsorized"].warps}
     rec.plan["sigma"] = {"form": plans["sigma"].form, "registers": teams[TEAM_F100][0],
@@ -3288,7 +3365,7 @@ def main(argv=None) -> int:
         print(f"phase8 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 9. linearfit, ECC and the star pipeline: plain PyTorch on the card
     if wanted(9):
-        phase9a(dev, card)
+        phase9a(rs, rec, dev, card)
         print(f"phase9a done at {time.perf_counter() - t_start:.1f} s", flush=True)
         phase9b(rs, rec, dev, card)
         print(f"phase9b done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -3338,7 +3415,13 @@ def main(argv=None) -> int:
         "shape": rec.align["shape"], "ms": rec.align["ms"],
         "plain_ms": rec.align["plain_ms"], "plain": "align_frames_slice",
         "bound_ms": rec.align["bound_ms"], "bound_by": "bytes", "bound": "hbm",
-        "library_ms": None}]}
+        "library_ms": None}] + [{
+        "name": "reject_linearfit", "route": "cuda",
+        "source": "siril-0.9_tpu/siriltpu_torch/csrc/reject_linearfit.cu",
+        "replaces": "no Pallas kernel: XLA's float32 fit in "
+                    "siril-0.9_tpu/siriltpu/ops/rejection.py:reject_linearfit",
+        "plain": "linearfit_settle", "bound_by": "bytes", "bound": "hbm",
+        "library_ms": None, **rec.linearfit}]}
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Rejection stack of (F, P) uint16 pixels: the five CUDA rejection
+"""Rejection stack of (F, P) uint16 pixels: the six CUDA rejection
 kernels (``csrc/reject_<name>.cu``) and their plain PyTorch versions.
 
 Port of ``siriltpu.ops.pallas.reject_stack`` (``reject_stack_pallas``):
@@ -22,7 +22,10 @@ F <= 128 in registers (percentile then needs no shared memory at all);
 sigma gives each pixel of F <= 128 a team of one or two lanes, which sorts
 and clips the column in their registers, and past that a thread; winsorized
 gives each pixel a warp, ``tile`` pixels a block, and up to F = 2048
-keeps the column in the warp's registers. Each kernel's C plan is the
+keeps the column in the warp's registers; linearfit gives each pixel a
+thread, which takes the next pixel of its block's span as soon as its
+own has ended, and up to F = 64 sorts the column in registers. Each
+kernel's C plan is the
 one place its layout is written down: ``launch_plan`` asks it for the
 largest tile whose shared memory fits in the 227 KB a block may use, or,
 where none fits, for the device-memory scratch copy the kernel works on
@@ -35,29 +38,36 @@ registers), ``team`` (in the registers of a team of lanes), ``shared``
 rejection. A CUDA tensor always goes to its kernel, and a failed build or
 launch raises. A CPU tensor goes to the kernel's plain version. None and
 sigma_masked, which have no kernel, run ``reject_and_mean`` in plain
-PyTorch on any device. Linearfit runs its hybrid on any device: the
-float32 fit (``reject_linearfit``), then its knife-edge pixels, gathered
-on the device, settled there in float64 by ``linearfit_settle`` (a
-``stack.linearfit_fixup`` span, counted in ``linearfit.knife``), so that
-every word and counter is Siril's. The settle is looked up in this
-module when it runs, so that a caller may wrap it.
+PyTorch on any device. Linearfit on the card is its kernel
+(``linearfit_cuda``): every pixel's fit in float64, one launch and no
+host sync; with tracing on, its pixel passes and the lane-pass slots it
+issued are summed on the device (``reject.passes.linearfit``,
+``reject.lane_slots.linearfit``). On the CPU it runs its hybrid: the
+float32 fit (``reject_linearfit``), then its knife-edge pixels, gathered,
+settled in float64 by ``linearfit_settle`` (a ``stack.linearfit_fixup``
+span, counted in ``linearfit.knife``). Both give every word and counter
+as Siril does. The settle is looked up in this module when it runs, so
+that a caller may wrap it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from siriltpu_torch.ops.rejection import (_mean_of_survivors, linearfit_settle,
+from siriltpu_torch.ops.rejection import (_gsl_x_moments, _mean_of_survivors,
+                                          linearfit_settle,
                                           masked_median, reject_and_mean,
                                           reject_linearfit,
                                           reject_percentile, reject_sigma,
                                           reject_sigma_window,
                                           reject_sigmedian, reject_winsorized,
                                           reject_winsorized_window)
-from siriltpu_torch.utils.build import KERNELS
+from siriltpu_torch.utils.build import KERNELS, PLANNED
 from siriltpu_torch.utils.timing import count, enabled, span
 
 #: shared memory a block may use, bytes; None: all that sm_90 allows
@@ -68,9 +78,8 @@ SMEM_LIMIT = None
 SCRATCH_BYTES = 1 << 30
 #: the forms of a launch, by the code its C plan reports
 FORMS = ("shared", "wires", "scratch", "team")
-#: the rejections without a kernel: linearfit's hybrid, and those
-#: stacked by ``reject_and_mean``
-_NO_KERNEL = ("none", "sigma_masked", "linearfit")
+#: the rejections without a kernel, stacked by ``reject_and_mean``
+_NO_KERNEL = ("none", "sigma_masked")
 #: the window form and the exact masked loop of the rejections whose
 #: kernels settle degenerate pixels
 _WINDOWED = {"sigma": (reject_sigma_window, reject_sigma),
@@ -97,7 +106,7 @@ def launch_plan(rejection: str, f: int, p: int = 1) -> Plan:
     device-memory scratch path in launches of at most ``SCRATCH_BYTES``."""
     from siriltpu_torch.utils.build import library
 
-    if rejection not in KERNELS:
+    if rejection not in PLANNED:
         raise ValueError(f"no rejection kernel {rejection!r}")
     out = (ctypes.c_int64 * 7)()
     rc = getattr(library(), f"reject_{rejection}_plan")(
@@ -170,6 +179,67 @@ def linearfit_hybrid(vals: torch.Tensor, siglow: float, sighigh: float,
     return mean, rejl, rejh
 
 
+@functools.lru_cache(maxsize=None)
+def _x_moments(f: int, device: torch.device) -> torch.Tensor:
+    """The (4, F) float64 table the linear-fit kernel reads, made once for
+    each F and kept on ``device``: ``_gsl_x_moments(f)`` (m_x and m_dx2
+    for N = 1 .. F), the reciprocals of the ranks 1 .. F and of m_dx2
+    (0 where m_dx2 is, at N = 1), each correctly rounded; the kernel
+    divides by a rank or by m_dx2 through them, exactly."""
+    moments = _gsl_x_moments(f, "cpu").numpy()
+    ranks = 1.0 / np.arange(1, f + 1, dtype=np.float64)
+    dx2 = np.divide(1.0, moments[1], out=np.zeros(f), where=moments[1] != 0)
+    return torch.from_numpy(np.concatenate([moments, ranks[None], dx2[None]])).to(device)
+
+
+def linearfit_cuda(vals: torch.Tensor, siglow: float, sighigh: float):
+    """Linear-fit clipping of (F, P) uint16 values on the card, in one
+    launch of ``csrc/reject_linearfit.cu`` on the current stream: (mean
+    uint16, rejl int32, rejh int32), each (P,), bit-equal to
+    ``linearfit_settle`` on every column. Asynchronous, with no host sync
+    once the table of x moments for F is on the card."""
+    return _launch_linearfit(vals, siglow, sighigh)[0]
+
+
+def _launch_linearfit(vals: torch.Tensor, siglow: float, sighigh: float):
+    """``linearfit_cuda``'s outputs and the plan it launched."""
+    from siriltpu_torch.utils.build import library
+
+    _check(vals, "linearfit", ("linearfit",))
+    if vals.device.type != "cuda":
+        raise ValueError(f"expected a CUDA tensor, got {vals.device}")
+    if not vals.is_contiguous():
+        raise ValueError("expected contiguous (F, P) values")
+    f, p = vals.shape
+    dev = vals.device
+    mean = torch.empty(p, dtype=torch.int16, device=dev)
+    rejl, rejh = (torch.empty(p, dtype=torch.int32, device=dev) for _ in range(2))
+    # with tracing on: the pixel passes and the lane-pass slots, summed on
+    # the card
+    tally = torch.zeros(2, dtype=torch.int64, device=dev) if enabled() else None
+    with torch.cuda.device(dev):
+        plan = launch_plan("linearfit", f, p)
+        moments = _x_moments(f, dev)
+        scratch = (torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
+                   if plan.scratch else None)
+        rc = library().reject_linearfit_u16(
+            vals.data_ptr(), p, None if scratch is None else scratch.data_ptr(),
+            plan.scratch_bytes, moments.data_ptr(), mean.data_ptr(),
+            rejl.data_ptr(), rejh.data_ptr(), f, p, float(siglow),
+            float(sighigh), None if tally is None else tally.data_ptr(),
+            -1 if SMEM_LIMIT is None else SMEM_LIMIT, SCRATCH_BYTES,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"reject_linearfit_u16 launch failed: cudaError_t {rc} (it "
+                           f"takes sigs that are positive normal numbers below 2^1000)")
+    count("reject.launches.linearfit")
+    count(f"reject.form.linearfit.{plan.form}")
+    if tally is not None:
+        count("reject.passes.linearfit", tally[0])
+        count("reject.lane_slots.linearfit", tally[1])
+    return (mean.view(torch.uint16), rejl, rejh), plan
+
+
 def reject_cuda(vals: torch.Tensor, rejection: str, siglow: float,
                 sighigh: float):
     """Launch a CUDA rejection kernel on the current stream: (mean uint16,
@@ -221,8 +291,8 @@ def reject_stack(vals: torch.Tensor, rejection: str, siglow: float,
     """Rejection stack of (F, P) uint16 values -> (P,) uint16 mean (the
     median for ``rejection="median"``), or (mean, rejlow, rejhigh) with
     ``with_counters``. ``rejection`` is one of sigma, median, percentile,
-    sigmedian and winsorized, which have kernels, or none, sigma_masked
-    and linearfit; percentile takes (plow, phigh) as (siglow, sighigh).
+    sigmedian, winsorized and linearfit, which have kernels, or none and
+    sigma_masked; percentile takes (plow, phigh) as (siglow, sighigh).
 
     Bit-exact against ``reject_and_mean`` (``masked_median`` for median),
     counters included. A CUDA tensor runs the CUDA kernel, a CPU tensor
@@ -235,13 +305,18 @@ def reject_stack(vals: torch.Tensor, rejection: str, siglow: float,
     every sigma and winsorized pixel is degenerate (the JAX package sends
     such stacks to its HBM path instead): the result is the same, only
     slower. The CUDA route makes no host sync. None and sigma_masked run
-    ``reject_and_mean`` on any device; linearfit syncs once a pass of
-    its fit and once to gather its knife-edge pixels."""
+    ``reject_and_mean`` on any device. Linearfit is bit-equal to
+    ``verify.oracle.c_reject_block``: on the card its kernel settles every
+    pixel in float64; on the CPU its hybrid syncs once a pass of its
+    float32 fit and once to gather its knife-edge pixels."""
     siglow, sighigh = float(siglow), float(sighigh)
-    _check(vals, rejection, KERNELS + _NO_KERNEL)
+    _check(vals, rejection, PLANNED + _NO_KERNEL)
     with span("stack.reject", device=vals.device, shape=tuple(vals.shape),
               rejection=rejection) as sp:
-        if rejection == "linearfit":
+        if rejection == "linearfit" and vals.device.type == "cuda":
+            (mean, rejl, rejh), plan = _launch_linearfit(vals, siglow, sighigh)
+            sp.set(form=plan.form)
+        elif rejection == "linearfit":
             mean, rejl, rejh = linearfit_hybrid(vals, siglow, sighigh)
             sp.set(form="hybrid")
         elif rejection in _NO_KERNEL:
@@ -262,4 +337,5 @@ def reject_stack(vals: torch.Tensor, rejection: str, siglow: float,
 
 
 __all__ = ["reject_stack", "reject_cuda", "reject_plain", "linearfit_hybrid",
+           "linearfit_cuda",
            "launch_plan", "Plan"]

@@ -703,7 +703,10 @@ def linearfit_settle(columns: Tensor, sig):
     WORD-valued tensor, in float64 and in the C's order of operations, so
     that each word and counter is ``verify.oracle.c_reject_block``'s: the
     exact path for the pixels whose float32 fit came within
-    LINEARFIT_KNIFE_EPS of a clip (``reject_stack``, the block loop).
+    LINEARFIT_KNIFE_EPS of a clip (``reject_stack`` on the CPU, the block
+    loop), and the plain twin of the card's linear-fit kernel
+    (``csrc/reject_linearfit.cu``), which runs this arithmetic on every
+    pixel.
 
     Vectorised over the K columns; loops over the frames and the passes
     (one host check a pass). A pass is the C's: the survivors, kept

@@ -119,11 +119,12 @@ def register_and_stack(frames_dev: torch.Tensor, *, sel: Tuple[int, int, int],
     ``siriltpu``'s function and have no effect: the kernel stacks all rows
     in one launch, and eager PyTorch never donates the caller's frames.
     ``reject_stack`` stacks every rejection: sigma, median, percentile,
-    sigmedian and winsorized with their kernels; none and sigma_masked in
-    plain PyTorch; linearfit as the f32 fit with its knife-edge pixels
-    settled in float64 on the frames' device, so that every word is
-    Siril's. Here the port departs from ``siriltpu``, whose
-    ``register_and_stack`` keeps the f32 fit's word on those pixels.
+    sigmedian, winsorized and linearfit with their kernels; none and
+    sigma_masked in plain PyTorch. Linearfit is Siril's float64 fit on
+    every pixel (on the CPU, the f32 fit with its knife-edge pixels
+    settled in float64), so that every word is Siril's. Here the port
+    departs from ``siriltpu``, whose ``register_and_stack`` keeps the f32
+    fit's word on those pixels.
     """
     f, h, w = frames_dev.shape
     dev = frames_dev.device

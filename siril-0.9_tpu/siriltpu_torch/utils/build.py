@@ -31,6 +31,10 @@ BUILD_DIR = _PKG / "_build"
 #: reject_<name>_u16 (the launch) and reject_<name>_plan (its block, shared
 #: memory, scratch and occupancy). The library also has align_shift_u16.
 KERNELS = ("sigma", "median", "percentile", "sigmedian", "winsorized")
+#: every kernel with a plan entry: KERNELS and linear-fit clipping
+#: (csrc/reject_linearfit.cu), whose launch reject_linearfit_u16 takes its
+#: sigs as doubles, the table of x moments and a counter buffer
+PLANNED = KERNELS + ("linearfit",)
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no product may be fused into an add, so the f32 sd combine
@@ -124,6 +128,13 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, i64, i64, i64,
                        f32, f32, ptr]
         fn.restype = ctypes.c_int
+    # vals, ld, scratch, scratch_bytes, moments, mean, rejl, rejh, f, p,
+    # siglow, sighigh, counters, smem_limit, scratch_limit, stream
+    lib.reject_linearfit_u16.argtypes = [ptr, i64, ptr, i64, ptr, ptr, ptr, ptr,
+                                         i64, i64, ctypes.c_double,
+                                         ctypes.c_double, ptr, i64, i64, ptr]
+    lib.reject_linearfit_u16.restype = ctypes.c_int
+    for name in PLANNED:
         plan = getattr(lib, f"reject_{name}_plan")
         # f, p, smem_limit, scratch_limit, out (7 int64)
         plan.argtypes = [i64, i64, i64, i64, ctypes.POINTER(i64)]
@@ -134,5 +145,5 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["build", "library", "library_path", "KERNELS", "CSRC_DIR",
+__all__ = ["build", "library", "library_path", "KERNELS", "PLANNED", "CSRC_DIR",
            "BUILD_DIR"]

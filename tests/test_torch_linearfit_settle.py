@@ -2,7 +2,9 @@
 (``siriltpu_torch.ops.rejection.linearfit_settle``) against the compiled
 reference C (tests/goldens/c_rejection.bin) and the literal per-pixel
 oracle (``verify.oracle.c_reject_block``), at tolerance 0 on the mean and
-both counters.
+both counters; on the card, the linear-fit kernel
+(``ops/cuda/reject_stack.py:linearfit_cuda``) against both, in each of
+its forms.
 
 The seeded columns hold the quirks the settle has to reproduce: the scan
 that breaks once N - r <= 4, the stale flags the removal reads past the
@@ -20,8 +22,10 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from siriltpu_torch.ops.cuda import reject_stack as rs  # noqa: E402
 from siriltpu_torch.ops.rejection import (linearfit_exact,  # noqa: E402
                                           linearfit_settle)
+from siriltpu_torch.utils.timing import counters  # noqa: E402
 from siriltpu_torch.verify import oracle  # noqa: E402
 
 from test_c_goldens import REJ_NAMES, _read_rejection  # noqa: E402
@@ -101,10 +105,7 @@ def test_settle_matches_compiled_c(n):
     """Every linearfit record of the compiled C with n values: the mean and
     both counters at tolerance 0, and ``linearfit_exact`` (the settle's
     NumPy face) the same."""
-    groups = {}
-    for kind, _, nn, sig0, sig1, vec, mean, rej0, rej1 in _read_rejection():
-        if REJ_NAMES[kind] == "linearfit" and nn == n:
-            groups.setdefault((sig0, sig1), []).append((vec, mean, rej0, rej1))
+    groups = _records(n)
     assert sum(len(v) for v in groups.values()) == 72
     for sig, items in groups.items():
         cols = np.stack([it[0] for it in items], axis=1)
@@ -144,3 +145,102 @@ def test_cuda_settle_matches_oracle(cuda_device, F):
     for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
         assert g.device.type == "cuda"
         np.testing.assert_array_equal(_ints(g), w, err_msg=name)
+
+
+def _records(n: int) -> dict:
+    """The compiled C's linearfit records with n values, by sig: lists of
+    (vec, mean, rejl, rejh)."""
+    groups = {}
+    for kind, _, nn, sig0, sig1, vec, mean, rej0, rej1 in _read_rejection():
+        if REJ_NAMES[kind] == "linearfit" and nn == n:
+            groups.setdefault((sig0, sig1), []).append((vec, mean, rej0, rej1))
+    return groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 8, 16, 33, 64, 128])
+def test_cuda_kernel_matches_compiled_c(cuda_device, n):
+    """The linear-fit kernel on every linearfit record of the compiled C
+    with n values: the mean and both counters at tolerance 0."""
+    groups = _records(n)
+    assert sum(len(v) for v in groups.values()) == 72
+    for sig, items in groups.items():
+        cols = np.stack([it[0] for it in items], axis=1).astype(np.uint16)
+        vals = torch.from_numpy(cols.view(np.int16)).view(torch.uint16).to(cuda_device)
+        got = rs.linearfit_cuda(vals, *sig)
+        for col, name, g in zip((1, 2, 3), ("mean", "rejl", "rejh"), got):
+            want = [it[col] for it in items]
+            np.testing.assert_array_equal(_ints(g), want, err_msg=f"{name} sig={sig}")
+
+
+#: F across the kernel's forms: the wires form's 2H = 4 .. 64 wires (F = 1
+#: to 64) and its end, the shared form past it with one to ten mask words
+KERNEL_FS = (1, 2, 3, 4, 5, 8, 50, 63, 64, 65, 100, 128, 129, 300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["smem", "scratch"])
+@pytest.mark.parametrize("F", KERNEL_FS)
+def test_cuda_kernel_matches_settle(cuda_device, monkeypatch, F, where):
+    """The linear-fit kernel against ``linearfit_settle`` on every column,
+    at both sigs, in the form its plan takes at F (wires up to 64, shared
+    past it) and, with no shared memory, in the scratch form; each call is
+    one launch of that form."""
+    if where == "scratch":
+        monkeypatch.setattr(rs, "SMEM_LIMIT", 0)
+    cols = np.tile(settle_columns(F, seed=40), (1, 3))
+    p = cols.shape[1]
+    form = "scratch" if where == "scratch" else "wires" if F <= 64 else "shared"
+    plan = rs.launch_plan("linearfit", F, p)
+    assert (plan.form, plan.chunk, plan.scratch) == (form, p, where == "scratch")
+    vals = torch.from_numpy(cols.view(np.int16)).view(torch.uint16)
+    for sig in SIGS:
+        key = f"reject.form.linearfit.{form}"
+        before = counters().get(key, 0)
+        got = rs.linearfit_cuda(vals.to(cuda_device), *sig)
+        assert counters()[key] == before + 1
+        want = linearfit_settle(vals, sig)
+        for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
+            np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=f"{name} sig={sig}")
+
+
+#: F whose blocks span more pixels than they have lanes at REFILL_P: the
+#: wires form (50, more than its ring's two halves of 64 columns) and the
+#: shared form (65, 100, 300; at most 128 lanes a block)
+REFILL_FS = (50, 65, 100, 300)
+REFILL_P = 1 << 18
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["smem", "scratch"])
+@pytest.mark.parametrize("F", REFILL_FS)
+def test_cuda_kernel_refills_its_lanes(cuda_device, monkeypatch, F, where):
+    """At P = 2^18 every block's span is longer than its lanes, so lanes
+    take second and later pixels: the wires form stages more halves of its
+    ring than it has and reuses them, and the memory forms copy and sort a
+    new column into a lane's slot and start its state afresh. The kernel
+    against ``linearfit_settle`` on the card on every column, at both sigs;
+    the columns are the settle's cases drawn at random, half of them with
+    a little noise added, so that neighbouring pixels end after different
+    passes."""
+    if where == "scratch":
+        monkeypatch.setattr(rs, "SMEM_LIMIT", 0)
+    rng = np.random.default_rng(F)
+    base = settle_columns(F, seed=50).astype(np.int64)
+    cols = base[:, rng.integers(0, base.shape[1], REFILL_P)]
+    noisy = rng.random(REFILL_P) < 0.5
+    cols[:, noisy] += rng.integers(-3, 4, size=(F, int(noisy.sum())))
+    cols = np.ascontiguousarray(cols.clip(0, 65535).astype(np.uint16))
+    form = "scratch" if where == "scratch" else "wires" if F <= 64 else "shared"
+    plan = rs.launch_plan("linearfit", F, REFILL_P)
+    assert (plan.form, plan.chunk, plan.scratch) == (form, REFILL_P, where == "scratch")
+    assert plan.tile > (2 * 64 if form == "wires" else 128), plan.tile
+    vals = torch.from_numpy(cols.view(np.int16)).view(torch.uint16).to(cuda_device)
+    for sig in SIGS:
+        key = f"reject.form.linearfit.{form}"
+        before = counters().get(key, 0)
+        got = rs.linearfit_cuda(vals, *sig)
+        assert counters()[key] == before + 1
+        want = linearfit_settle(vals, sig)
+        for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
+            np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=f"{name} sig={sig}")

@@ -400,16 +400,51 @@ def test_reject_stack_linearfit_matches_oracle_on_every_pixel(F, P, sig, seed):
         np.testing.assert_array_equal(_ints(g), w, err_msg=name)
 
 
+@pytest.mark.parametrize("F,P,sig,seed", LINEARFIT_ROUTE_CASES)
+def test_settle_of_every_column_matches_linearfit_hybrid(F, P, sig, seed):
+    """``linearfit_settle`` over every column, the float64 twin that the
+    card's kernel is held to, gives the CPU route's hybrid (the float32
+    fit, its knife-edge pixels settled) word for word, counters included."""
+    t = frames_from_numpy(knife_vals(F, P, seed), "cpu")
+    want = rs.linearfit_hybrid(t, *sig)
+    got = trej.linearfit_settle(t, sig)
+    for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
+        np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=name)
+
+
+def linearfit_launched() -> dict:
+    """The linear-fit kernel's launches so far, in all and by form."""
+    return {k: v for k, v in counters().items()
+            if k == "reject.launches.linearfit" or k.startswith("reject.form.linearfit.")}
+
+
+def launched_since(before: dict) -> dict:
+    """The linear-fit launch counters that grew since ``before``, by how
+    much."""
+    return {k: v - before.get(k, 0) for k, v in linearfit_launched().items()
+            if v != before.get(k, 0)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("F,P,sig,seed", LINEARFIT_ROUTE_CASES)
 def test_cuda_reject_stack_linearfit_matches_cpu(cuda_device, F, P, sig, seed):
-    """On the card linearfit runs the same hybrid on the device, and its
-    words and counters are the CPU route's, which the oracle holds."""
+    """On the card linearfit is one launch of its kernel, in the wires
+    form at these F, with no host sync; its words and counters are the
+    CPU route's (the hybrid), which the oracle holds."""
     vals = knife_vals(F, P, seed)
     want = rs.reject_stack(frames_from_numpy(vals, "cpu"), "linearfit", *sig,
                            with_counters=True)
-    got = rs.reject_stack(frames_from_numpy(vals, cuda_device), "linearfit",
-                          *sig, with_counters=True)
+    dev_vals = frames_from_numpy(vals, cuda_device)
+    rs.linearfit_cuda(dev_vals, *sig)  # the table of x moments for F
+    torch.cuda.synchronize()
+    before = linearfit_launched()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = rs.reject_stack(dev_vals, "linearfit", *sig, with_counters=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert launched_since(before) == {"reject.launches.linearfit": 1,
+                                      "reject.form.linearfit.wires": 1}
     for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
         assert g.device.type == "cuda"
         np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=name)
@@ -419,18 +454,109 @@ def test_cuda_reject_stack_linearfit_matches_cpu(cuda_device, F, P, sig, seed):
 def test_cuda_register_and_stack_linearfit_matches_cpu(cuda_device):
     """register_and_stack(rejection="linearfit") on the card: the CPU's
     stack (the oracle's words, test_torch_register_stack.py) and shifts,
-    its knife-edge pixels settled on the device."""
+    its stack one launch of the linear-fit kernel in the wires form."""
     from siriltpu_torch.pipelines.register_stack import (RegisterStackBench,
                                                          register_and_stack)
 
     bench = RegisterStackBench(size=96, nframes=12, seed=7, device="cpu")
     kw = dict(sel=bench.sel, rejection="linearfit", sig=(2.0, 1.5))
-    before = counters().get("linearfit.knife", 0)
+    before = linearfit_launched()
     got = register_and_stack(bench.frames().to(cuda_device), **kw)
-    assert counters()["linearfit.knife"] > before
+    assert launched_since(before) == {"reject.launches.linearfit": 1,
+                                      "reject.form.linearfit.wires": 1}
     want = register_and_stack(bench.frames(), **kw)
     for g, w in zip(got[:2], want[:2]):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("F", [1, 50, 300])
+def test_linearfit_moments_table(F):
+    """The table the linear-fit kernel reads, made once for each F and
+    device: ``_gsl_x_moments``' two rows bit for bit, then the correctly
+    rounded reciprocals of the ranks 1 .. F and of m_dx2 (N > 1)."""
+    table = rs._x_moments(F, torch.device("cpu"))
+    assert table is rs._x_moments(F, torch.device("cpu"))
+    assert table.dtype == torch.float64 and tuple(table.shape) == (4, F)
+    moments = trej._gsl_x_moments(F, "cpu").numpy()
+    np.testing.assert_array_equal(table[:2].numpy(), moments)
+    np.testing.assert_array_equal(table[2].numpy(), np.float64(1.0) / np.arange(1, F + 1))
+    np.testing.assert_array_equal(table[3, 1:].numpy(), np.float64(1.0) / moments[1, 1:])
+    assert table[3, 0] == 0 and moments[1, 0] == 0
+
+
+#: least warps the linear-fit kernel keeps resident per SM at F = 50: its
+#: wires form's 4-warp blocks, 7 to an SM at 72 registers, as its shared
+#: memory allows (chip_smoke.py prints the same)
+MIN_WARPS_LINEARFIT_F50 = 28
+
+
+@pytest.mark.cuda
+def test_cuda_linearfit_plan(cuda_device, monkeypatch):
+    """The linear-fit kernel's forms: the wires form up to F = 64, the
+    shared form past it at the most threads a block whose columns fit, the
+    scratch form where none fit; one launch takes any P, in spans of whole
+    ring halves (64 pixels) in the wires form; sigs outside the positive
+    normal numbers below 2^1000 are refused."""
+    p = 1 << 22
+    plan = rs.launch_plan("linearfit", 50, p)
+    assert (plan.form, plan.chunk, plan.scratch) == ("wires", p, False)
+    assert plan.tile % 64 == 0 and plan.warps >= MIN_WARPS_LINEARFIT_F50
+    for f in (1, 64):
+        assert rs.launch_plan("linearfit", f, p).form == "wires"
+    for f in (65, 300, 2000):
+        plan = rs.launch_plan("linearfit", f, p)
+        assert (plan.form, plan.chunk) == ("shared", p), f
+    assert rs.launch_plan("linearfit", 4000, p).form == "scratch"
+    monkeypatch.setattr(rs, "SMEM_LIMIT", 0)
+    plan = rs.launch_plan("linearfit", 50, p)
+    assert (plan.form, plan.chunk, plan.scratch) == ("scratch", p, True)
+    monkeypatch.undo()
+    vals = frames_from_numpy(make_vals(12, 256), cuda_device)
+    for sig in ((0.0, 3.0), (3.0, -1.0), (3.0, float("inf")), (float("nan"), 3.0)):
+        with pytest.raises(RuntimeError):
+            rs.linearfit_cuda(vals, *sig)
+
+
+def edge_columns(f: int, p: int, seed: int) -> np.ndarray:
+    """(F, P) uint16 columns of a deep-sky stack's edges and flats: noise
+    around 1000 with a few hot and cold values, columns whose first or
+    last frames are the zero fill of a drift (1 to F/3 of them), all-equal
+    columns (sigma 0) and exact ramps."""
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(1000, 10, size=(f, p))
+    vals[rng.integers(0, f, p // 5), rng.integers(0, p, p // 5)] = 60000
+    vals[rng.integers(0, f, p // 5), rng.integers(0, p, p // 5)] = 0
+    for c in range(0, p, 5):
+        k = rng.integers(1, f // 3 + 2)
+        if c % 2:
+            vals[:k, c] = 0
+        else:
+            vals[f - k:, c] = 0
+    vals[:, 3::17] = rng.integers(0, 65536, size=(1, vals[:, 3::17].shape[1]))
+    vals[:, 4::23] = 100 + 7 * np.arange(f)[:, None]
+    return vals.clip(0, 65535).astype(np.uint16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", [(2.0, 1.5), (3.0, 3.0)])
+@pytest.mark.parametrize("F", [12, 50])
+def test_cuda_linearfit_edge_columns(cuda_device, F, sig):
+    """The kernel on zero-filled drift edges, all-equal columns and ramps,
+    over a P that is no multiple of a block's pixels or of a warp: the
+    float64 settle's words and counters on every column, and the oracle's
+    on a seeded sample of them."""
+    p = 10007
+    vals = edge_columns(F, p, seed=F)
+    plan = rs.launch_plan("linearfit", F, p)
+    assert p % plan.tile != 0 and p % 32 != 0
+    got = rs.linearfit_cuda(frames_from_numpy(vals, cuda_device), *sig)
+    want = trej.linearfit_settle(frames_from_numpy(vals, "cpu"), sig)
+    for name, g, w in zip(("mean", "rejl", "rejh"), got, want):
+        np.testing.assert_array_equal(_ints(g), _ints(w), err_msg=name)
+    cols = np.random.default_rng(1).choice(p, 300, replace=False)
+    oracle_want = _oracle_words(vals[:, cols], "linearfit", sig)
+    for name, g, w in zip(("mean", "rejl", "rejh"), got, oracle_want):
+        np.testing.assert_array_equal(_ints(g)[cols], w, err_msg=name)
 
 
 def test_wrapper_rejects_bad_input():
